@@ -1,0 +1,319 @@
+#!/usr/bin/env python3
+"""On-card smoke test of dpig_tpu_torch, the PyTorch/CUDA port.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (an H100: the kernels are built for sm_90a) and `nvcc`.
+Phases, each printing one line; any failure exits non-zero:
+
+  1. device   the card's name and power limit (nvidia-smi); TF32 off for
+              cuDNN convs and cuBLAS matmuls, so float32 is float32;
+  2. build    every CUDA kernel of the port, from the sources here;
+  3. kernels  each kernel against its plain PyTorch version on the card at
+              the Market shape, bit-equal, with kernel / plain times and the
+              card's bound for the same work. `ms` / `plain_ms` are device
+              times (calls captured in a CUDA graph and replayed);
+  4. slice    model-12 pose transfer (ConditionalTransferTester) at full
+              Market width (128x64, hidden 128, z 64, batch 16), cold start,
+              4 batches: the PNG tree, finite outputs, and the pose kernel
+              launched exactly twice per batch;
+  5. parity   the same weights on the card and on the CPU: transfer outputs
+              within a stated tolerance, also with PyTorch's TF32 flags on
+              (the tester runs float32 whatever they say); the same forward
+              past the tester's float32 guard, with TF32 on, must exceed
+              the tolerance, which shows the check can see that fault.
+
+The line before the last is {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor float32/int32 peak
+MARKET = dict(b=16, h=128, w=64, k=18)
+# Card vs CPU limit on max |diff| of g_raw and of the D score, batch 2 at
+# full width. Both sides float32; cuDNN and the CPU's conv kernels sum in
+# other orders through ~50 conv layers. On an NVIDIA H100 80GB HBM3 at
+# 700 W this phase read 2.0e-6 (g_raw) and 1.8e-5 (score) in float32, and
+# 6.0e-4 and 4.5e-3 with TF32 on: 1e-4 sits between the two on both, at
+# least 5x from each reading (PERF.md, "Card vs CPU").
+PARITY_TOL = 1e-4
+
+
+def _graph_ms(fn, reps: int = 25, inner: int = 20) -> float:
+    """Device time of one call: `inner` calls captured in one CUDA graph,
+    replayed `reps` times between CUDA events (median), so the host's
+    launch cost is out of the measurement."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as required
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    for _ in range(3):
+        graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def phase_device():
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(smi, flush=True)
+    print(f"[device] {name} | nvidia-smi: {smi} | count "
+          f"{torch.cuda.device_count()} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    return name
+
+
+def phase_build():
+    from dpig_tpu_torch.kernels import _build
+    name = "pose_raster"
+    fresh = not os.path.exists(_build.library_path(name))
+    t0 = time.perf_counter()
+    _build.load(name)
+    print(f"[build] {name}: {'built' if fresh else 'cached library'} and "
+          f"loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _market_rcv(rng, normalized):
+    b, h, w, k = (MARKET[x] for x in "bhwk")
+    if normalized:
+        r = rng.uniform(-1.2, 1.2, (b, k))
+        c = rng.uniform(-1.2, 1.2, (b, k))
+    else:  # includes keypoints outside the image
+        r = rng.uniform(-8, h + 8, (b, k))
+        c = rng.uniform(-8, w + 8, (b, k))
+    v = (rng.uniform(size=(b, k)) > 0.2).astype(np.float32)
+    rcv = np.stack([r, c, v], -1).astype(np.float32).reshape(b, k * 3)
+    return torch.from_numpy(rcv).cuda()
+
+
+def phase_kernels():
+    from dpig_tpu_torch.kernels.pose_raster import render_pose_maps_cuda
+    from dpig_tpu_torch.ops.pose import render_pose_maps_plain
+    b, h, w, k = (MARKET[x] for x in "bhwk")
+    rng = np.random.default_rng(0)
+    row = {}
+    for normalized in (False, True):
+        rcv = _market_rcv(rng, normalized)
+        out = render_pose_maps_cuda(rcv, h, w, k, 4, normalized)
+        ref = render_pose_maps_plain(rcv, h, w, k, 4, normalized)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(out, ref))
+        err = float((out - ref).abs().max())
+        on = float((out > 0).float().mean())
+
+        def kernel():
+            return render_pose_maps_cuda(rcv, h, w, k, 4, normalized)
+
+        def plain():
+            return render_pose_maps_plain(rcv, h, w, k, 4, normalized)
+
+        ms, plain_ms = _graph_ms(kernel), _graph_ms(plain)
+        mode = "normalized" if normalized else "pixel"
+        print(f"[kernels] pose_raster {mode} coords B={b} {h}x{w} K={k}: "
+              f"bit_equal={equal} max_abs_err={err} on_fraction={on:.4f} | "
+              f"device time (CUDA graph): kernel {ms * 1e3:.2f} us, plain "
+              f"{plain_ms * 1e3:.2f} us", flush=True)
+        if not equal:
+            raise AssertionError(f"pose_raster ({mode}) differs from its "
+                                 f"plain version: max abs err {err}")
+        if not normalized:  # the main path's mode
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bit_equal=equal)
+    bytes_moved = b * k * 3 * 4 + b * h * w * k * 4
+    ops = b * h * w * k * 6   # 2 sub, 2 mul, 1 add, 1 compare per element
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"[kernels] pose_raster bound: {bytes_moved} B -> "
+          f"{bytes_ms * 1e3:.3f} us, {ops} int ops -> {ops_ms * 1e3:.3f} us",
+          flush=True)
+    return {"name": "pose_raster", "route": "cuda",
+            "source": "dpig_tpu_torch/csrc/pose_raster.cu",
+            "replaces": "dpig_tpu/ops/pose_pallas.py:72",
+            "launches": None, "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "bit_equal": row["bit_equal"],
+            "kernel_ms": row["ms"], "bound_us": bound_ms * 1e3}
+
+
+def phase_slice(model_dir):
+    from dpig_tpu_torch.apps.testers import ConditionalTransferTester
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data.synthetic import SyntheticLoader
+    from dpig_tpu_torch.kernels import pose_raster
+
+    n_batches = 4
+    cfg = Config(platform="", model_dir=model_dir)
+    if (cfg.img_H, cfg.img_W, cfg.conv_hidden_num, cfg.z_num,
+            cfg.batch_size, cfg.repeat_num) != (128, 64, 128, 64, 16, 5):
+        raise AssertionError("Config() defaults are not the Market model")
+    tester = ConditionalTransferTester(cfg)
+    step = tester.transfer_step
+    starts, outputs = [], []
+
+    def recorded_step(batch):
+        starts.append(time.perf_counter())
+        out = step(batch)
+        outputs.append(out)
+        return out
+
+    tester.transfer_step = recorded_step
+    loader = SyntheticLoader(cfg.batch_size, cfg.img_H, cfg.img_W,
+                             seed=cfg.random_seed)
+    pose_raster.launches = 0
+    out_root = tester.run(loader, test_batch_num=n_batches)
+    torch.cuda.synchronize()
+    launches = pose_raster.launches
+    end = time.perf_counter()
+
+    batch_ms = [(t1 - t0) * 1e3 for t0, t1 in zip(starts, starts[1:] + [end])]
+    counts = {d: len(os.listdir(os.path.join(out_root, d)))
+              for d in sorted(os.listdir(out_root))}
+    finite = all(bool(torch.isfinite(t).all()) for o in outputs for t in o)
+    g = outputs[-1][0]
+    print(f"[slice] model 12 {cfg.img_H}x{cfg.img_W} hidden "
+          f"{cfg.conv_hidden_num} z {cfg.z_num} batch {cfg.batch_size}: "
+          f"{n_batches} batches, pose kernel launches {launches}, PNGs "
+          f"{counts}, finite={finite}, G shape {tuple(g.shape)}, per-batch "
+          f"ms after the first {[round(x, 2) for x in batch_ms[1:]]} "
+          f"(first {batch_ms[0]:.1f})", flush=True)
+    if launches != 2 * n_batches:
+        raise AssertionError(f"pose kernel launched {launches} times, "
+                             f"expected {2 * n_batches}")
+    if len(counts) != 7 or set(counts.values()) != {n_batches * cfg.batch_size}:
+        raise AssertionError(f"PNG tree {counts}")
+    if not finite or g.shape != (cfg.batch_size, cfg.img_H, cfg.img_W, 3):
+        raise AssertionError("non-finite or mis-shaped transfer outputs")
+    return tester, launches
+
+
+def _raw_outputs(tester, batch):
+    """(g_raw, score) of transfer_step before the [0,255] clip."""
+    from dpig_tpu_torch.apps.common import (batch_to_device,
+                                            pose_maps_from_batch)
+    with torch.inference_mode():
+        jb = batch_to_device(batch, tester.device)
+        embs = tester._encode_app(jb)
+        pose = pose_maps_from_batch(jb, tester.cfg, "pose_rcv_target")
+        g_raw = tester._generate(embs, pose)
+        return g_raw.cpu(), tester._disc_score(g_raw).cpu()
+
+
+def _raw_outputs_unguarded(tester, batch):
+    """The same forward with the modules called straight, past Stage1App's
+    float32 guard, so that the caller's TF32 flags reach cuDNN/cuBLAS."""
+    from dpig_tpu_torch.apps.common import (batch_to_device,
+                                            pose_maps_from_batch,
+                                            select_parts)
+    s1, cfg = tester.stage1, tester.cfg
+    with torch.inference_mode():
+        jb = batch_to_device(batch, tester.device)
+        bbox, vis = select_parts(jb["part_bbox"], jb["part_vis"],
+                                 cfg.roi_part_num)
+        embs = s1.encoder(jb["x"], jb["mask_r6"], bbox, vis)
+        g_raw, _ = s1.generator(
+            embs, pose_maps_from_batch(jb, cfg, "pose_rcv_target"))
+        return g_raw.cpu(), s1.disc(g_raw, train=True).cpu()
+
+
+def _set_tf32(on: bool):
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def phase_parity(card_tester, model_dir):
+    from dpig_tpu_torch.apps.testers import ConditionalTransferTester
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data.synthetic import SyntheticLoader
+    s1 = card_tester.stage1
+    state = {"Encoder": s1.encoder.state_dict(),
+             "ID_AE": s1.generator.state_dict(),
+             "Discriminator": s1.disc.state_dict(),
+             "Discriminator_stats": {}}
+    state = {k: {n: t.cpu() for n, t in v.items()} for k, v in state.items()}
+    cpu_tester = ConditionalTransferTester(
+        Config(platform="cpu", model_dir=model_dir), params=state)
+    batch = next(SyntheticLoader(2, 128, 64, seed=99))
+    g_cpu, s_cpu = _raw_outputs(cpu_tester, batch)
+
+    def diff(outs):
+        return (float((outs[0] - g_cpu).abs().max()),
+                float((outs[1] - s_cpu).abs().max()))
+
+    sound = diff(_raw_outputs(card_tester, batch))          # TF32 flags off
+    _set_tf32(True)  # PyTorch's default for cuDNN convs
+    try:
+        guarded = diff(_raw_outputs(card_tester, batch))
+        tf32 = diff(_raw_outputs_unguarded(card_tester, batch))
+    finally:
+        _set_tf32(False)
+    print(f"[parity] card vs CPU, batch 2 at full width, max|diff| of "
+          f"(g_raw, score): float32 {sound[0]:.3e}, {sound[1]:.3e}; with the "
+          f"TF32 flags on {guarded[0]:.3e}, {guarded[1]:.3e}; TF32 past the "
+          f"guard (control) {tf32[0]:.3e}, {tf32[1]:.3e}; tolerance "
+          f"{PARITY_TOL} (max|g_raw| {float(g_cpu.abs().max()):.3f}, "
+          f"max|score| {float(s_cpu.abs().max()):.3f})", flush=True)
+    if max(sound + guarded) > PARITY_TOL:
+        raise AssertionError("card and CPU disagree beyond the tolerance")
+    if min(tf32) <= PARITY_TOL:
+        raise AssertionError("a TF32 run passes the tolerance: the parity "
+                             "check cannot tell TF32 from float32")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs on the card",
+              file=sys.stderr)
+        return 1
+    import dpig_tpu_torch  # noqa: F401  (fails outside a checkout)
+    name = phase_device()
+    phase_build()
+    kernel = phase_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        tester, launches = phase_slice(os.path.join(tmp, "m12"))
+        kernel["launches"] = launches
+        phase_parity(tester, os.path.join(tmp, "m12_cpu"))
+    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

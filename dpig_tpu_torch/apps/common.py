@@ -1,0 +1,48 @@
+"""Shared glue for the model apps (port of `dpig_tpu/apps/common.py:26-48`)
+plus the port's device rule."""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..ops.pose import render_pose_maps
+
+
+def select_device(platform: str) -> torch.device:
+    """`--platform` -> torch device: '' is the card and raises without
+    one; 'cpu' is the CPU. Nothing falls back silently."""
+    if platform == "":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: dpig_tpu_torch runs on the card by default; "
+                "pass --platform=cpu (Config(platform='cpu')) to run on the "
+                "CPU")
+        return torch.device("cuda")
+    if platform == "cpu":
+        return torch.device("cpu")
+    raise ValueError(f"--platform must be '' (the card) or 'cpu', got "
+                     f"{platform!r}")
+
+
+def batch_to_device(batch: Mapping[str, np.ndarray],
+                    device: torch.device) -> Dict[str, torch.Tensor]:
+    """numpy loader batch -> tensors on `device`."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def select_parts(batch_bbox: torch.Tensor, batch_vis: torch.Tensor,
+                 n: int = 7):
+    """Take the first n of the 37 stored part bboxes (trainer.py:576-578)."""
+    return batch_bbox[:, :n, :], batch_vis[:, :n].to(torch.float32)
+
+
+def pose_maps_from_batch(batch: Mapping[str, torch.Tensor], cfg: Config,
+                         key: str = "pose_rcv") -> torch.Tensor:
+    """The 18-ch radius-4 pose map from raw rcv coords, rendered on the
+    batch's device (the CUDA kernel on the card)."""
+    return render_pose_maps(batch[key], cfg.img_H, cfg.img_W,
+                            cfg.keypoint_num, radius=4, normalized=False)

@@ -1,0 +1,34 @@
+"""Image normalization / resizing (port of `dpig_tpu/ops/image.py:12-66`).
+
+Reference semantics: utils.py:102-107 (process/unprocess), utils.py:88-89
+(denorm+clip), utils.py:70-72 (nearest-neighbor upscale). NHWC tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def process_image(image: torch.Tensor, mean_pixel: float = 127.5,
+                  norm: float = 127.5) -> torch.Tensor:
+    """uint8-range image -> [-1, 1] floats (reference utils.py:102-103)."""
+    return (image - mean_pixel) / norm
+
+
+def unprocess_image(image: torch.Tensor, mean_pixel: float = 127.5,
+                    norm: float = 127.5) -> torch.Tensor:
+    """[-1, 1] floats -> uint8-range (reference utils.py:106-107)."""
+    return image * norm + mean_pixel
+
+
+def denorm_img(norm: torch.Tensor) -> torch.Tensor:
+    """[-1,1] -> [0,255] clipped (reference utils.py:88-89)."""
+    return torch.clamp((norm + 1.0) * 127.5, 0.0, 255.0)
+
+
+def upscale_nn(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Nearest-neighbor integer upsample of an NHWC tensor
+    (tf.image.resize_nearest_neighbor, reference utils.py:61-72).
+    Forward only: the training slice brings the 2x2-sum gradient."""
+    b, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(b, h, scale, w, scale, c)
+    return x.reshape(b, h * scale, w * scale, c)

@@ -1,0 +1,152 @@
+"""The CUDA pose rasterizer on the card: bit-equal to its plain version
+over shapes, radii and coordinate edges beyond the Market shape that
+chip_smoke.py checks; one counted launch per call; no route from a CUDA
+tensor to the plain version; bad inputs refused before launch. And the
+model-12 tester on the card runs float32 with PyTorch's TF32 flags on.
+
+Marked `cuda` and skipped without a card. On a machine with one (JAX is not
+needed there, hence no conftest):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from dpig_tpu_torch.apps.common import batch_to_device
+from dpig_tpu_torch.apps.testers import ConditionalTransferTester
+from dpig_tpu_torch.config import Config
+from dpig_tpu_torch.data.synthetic import SyntheticLoader
+from dpig_tpu_torch.kernels import pose_raster
+from dpig_tpu_torch.ops import pose
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rcv(seed, b, h, w, k, normalized):
+    """Random keypoints plus the edges of both coordinate rules: exact
+    integers, the image border, just outside it, negative fractions (which
+    truncate to 0) and invisible ones."""
+    rng = np.random.default_rng(seed)
+    if normalized:
+        r = rng.uniform(-1.3, 1.3, (b, k))
+        c = rng.uniform(-1.3, 1.3, (b, k))
+        edges_r = [-1.0, 1.0, 0.0, -0.999, 0.999, 1.5]
+        edges_c = [1.0, -1.0, 0.5, 0.999, -0.999, -1.5]
+    else:
+        r = rng.uniform(-10, h + 10, (b, k))
+        c = rng.uniform(-10, w + 10, (b, k))
+        edges_r = [0.0, h - 1, h, -0.5, h - 0.5, 3.0]
+        edges_c = [w - 1, 0.0, -0.5, w, w - 0.01, 2.0]
+    n = min(k, len(edges_r))
+    r[0, :n], c[0, :n] = edges_r[:n], edges_c[:n]
+    v = (rng.uniform(size=(b, k)) > 0.25).astype(np.float64)
+    v[0, :n] = 1.0
+    return np.stack([r, c, v], -1).astype(np.float32).reshape(b, k * 3)
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+@pytest.mark.parametrize("b,h,w,k,radius", [
+    (16, 128, 64, 18, 4), (16, 256, 256, 18, 4), (3, 37, 23, 18, 4),
+    (2, 32, 16, 18, 0), (1, 20, 9, 1, 9), (5, 128, 64, 7, 2)])
+def test_kernel_bit_equal_to_plain(card, b, h, w, k, radius, normalized):
+    rcv = torch.from_numpy(_rcv(b * h + k, b, h, w, k, normalized)).to(card)
+    before = pose_raster.launches
+    out = pose.render_pose_maps(rcv, h, w, k, radius, normalized)
+    torch.cuda.synchronize()
+    assert pose_raster.launches == before + 1
+    ref = pose.render_pose_maps_plain(rcv, h, w, k, radius, normalized)
+    assert out.shape == (b, h, w, k) and out.dtype == torch.float32
+    assert torch.equal(out, ref)
+    # the same on the CPU: the plain version is device-independent
+    assert torch.equal(out.cpu(), pose.render_pose_maps(rcv.cpu(), h, w, k,
+                                                        radius, normalized))
+
+
+def test_cuda_tensor_never_reaches_the_plain_version(card, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain rasterizer ran on a CUDA tensor")
+
+    monkeypatch.setattr(pose, "render_pose_maps_plain", refuse)
+    rcv = torch.from_numpy(_rcv(0, 2, 32, 16, 18, False)).to(card)
+    before = pose_raster.launches
+    pose.render_pose_maps(rcv, 32, 16)
+    pose.render_pose_points(rcv.reshape(2, 18, 3) / 40.0, 32, 16)
+    assert pose_raster.launches == before + 2
+
+
+def test_non_contiguous_rcv_gives_the_same_maps_on_card_and_cpu(card):
+    rcv = torch.from_numpy(_rcv(3, 4, 32, 16, 18, False)).reshape(4, 18, 3)
+    strided = rcv.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous()
+    before = pose_raster.launches
+    out = pose.render_pose_maps(strided.to(card), 32, 16)
+    assert pose_raster.launches == before + 1
+    assert torch.equal(out.cpu(), pose.render_pose_maps(strided, 32, 16))
+
+
+def test_tester_with_tf32_on_matches_the_cpu(card, tmp_path):
+    """PyTorch's TF32 flags on when the tester is built and run: the card
+    still computes float32, and the flags are the caller's again after."""
+    small = dict(img_H=32, img_W=16, batch_size=4, conv_hidden_num=16,
+                 z_num=16)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        t = ConditionalTransferTester(
+            Config(platform="", model_dir=str(tmp_path), **small))
+        s1 = t.stage1
+        state = {"Encoder": s1.encoder.state_dict(),
+                 "ID_AE": s1.generator.state_dict(),
+                 "Discriminator": s1.disc.state_dict(),
+                 "Discriminator_stats": {}}
+        c = ConditionalTransferTester(
+            Config(platform="cpu", model_dir=str(tmp_path), **small),
+            params={k: {n: v.cpu() for n, v in d.items()}
+                    for k, d in state.items()})
+        batch = next(SyntheticLoader(4, 32, 16, seed=3))
+        g, pose_t, score = t.transfer_step(batch_to_device(batch, t.device))
+        g_c, pose_c, score_c = c.transfer_step(batch_to_device(batch, c.device))
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+    finally:
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+    assert torch.equal(pose_t.cpu(), pose_c)
+    # the CPU parity tests' bounds: 1e-4 on g_raw (2e-2 on [0,255])
+    assert float((g.cpu() - g_c).abs().max()) <= 2e-2
+    assert float((score.cpu() - score_c).abs().max()) <= 1e-4
+
+
+def test_kernel_on_a_side_stream(card):
+    rcv = torch.from_numpy(_rcv(1, 4, 64, 32, 18, False)).to(card)
+    ref = pose.render_pose_maps_plain(rcv, 64, 32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = pose_raster.render_pose_maps_cuda(rcv, 64, 32)
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(out, ref)
+
+
+def test_wrapper_refuses_bad_inputs(card):
+    rcv = torch.from_numpy(_rcv(2, 2, 32, 16, 18, False)).to(card)
+    before = pose_raster.launches
+    with pytest.raises(TypeError, match="float32"):
+        pose_raster.render_pose_maps_cuda(rcv.double(), 32, 16)
+    with pytest.raises(ValueError, match="shape"):
+        pose_raster.render_pose_maps_cuda(rcv[:, :-3], 32, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        pose_raster.render_pose_maps_cuda(
+            rcv.reshape(2, 18, 3).transpose(0, 1).contiguous().transpose(0, 1),
+            32, 16)
+    with pytest.raises(ValueError, match="radius"):
+        pose_raster.render_pose_maps_cuda(rcv, 32, 16, radius=-1)
+    assert pose_raster.launches == before
