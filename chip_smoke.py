@@ -8,11 +8,16 @@ Phases, each printing one line; any failure exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi); TF32 off for
               cuDNN convs and cuBLAS matmuls, so float32 is float32;
-  2. build    every CUDA kernel of the port, from the sources here;
+  2. build    every CUDA kernel of the port, from the sources here, with
+              ptxas's registers, shared memory and spills per kernel;
   3. kernels  each kernel against its plain PyTorch version on the card at
-              the Market shape, bit-equal, with kernel / plain times and the
-              card's bound for the same work. `ms` / `plain_ms` are device
-              times (calls captured in a CUDA graph and replayed);
+              the Market shape and at 256x256, in both coordinate modes,
+              bit-equal, with kernel / plain times, the card's bound for the
+              same work and its share, and `fill_ms`: torch.empty(same
+              shape).fill_(-1), the same bytes written by PyTorch, as a
+              yardstick of the write rate the card reaches at this size.
+              All times are device times (calls captured in a CUDA graph
+              and replayed);
   4. slice    model-12 pose transfer (ConditionalTransferTester) at full
               Market width (128x64, hidden 128, z 64, batch 16), cold start,
               4 batches: the PNG tree, finite outputs, and the pose kernel
@@ -40,8 +45,15 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
-FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor float32/int32 peak
+# Non-tensor INT32 peak: the data sheet's 67 TFLOP/s float32 counts an FMA
+# as 2 on 128 FP32 lanes per SM; an SM has 64 INT32 lanes (Hopper white
+# paper), so 67e12 / 2 / 2 integer operations per second.
+INT32_OPS_PER_S = 16.75e12
+# Integer operations the pose raster needs: two compares and a select per
+# output element, and about 20 per keypoint and row for its column span.
+RASTER_OPS_PER_ELEMENT, RASTER_OPS_PER_SPAN = 3, 20
 MARKET = dict(b=16, h=128, w=64, k=18)
+RASTER_SHAPES = {"Market": MARKET, "256x256": dict(b=16, h=256, w=256, k=18)}
 # Card vs CPU limit on max |diff| of g_raw and of the D score, batch 2 at
 # full width. Both sides float32; cuDNN and the CPU's conv kernels sum in
 # other orders through ~50 conv layers. On an NVIDIA H100 80GB HBM3 at
@@ -104,10 +116,16 @@ def phase_build():
     _build.load(name)
     print(f"[build] {name}: {'built' if fresh else 'cached library'} and "
           f"loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    ptxas = [ln.split(":", 1)[-1].strip() for ln in
+             _build.build_log(name).splitlines()
+             if "Used" in ln or "spill" in ln]
+    print(f"[build] {name} ptxas -v: {' | '.join(ptxas) or 'not reported'}"
+          f"; shared memory: dynamic only, K*8 B per block (144 B at K=18)",
+          flush=True)
 
 
-def _market_rcv(rng, normalized):
-    b, h, w, k = (MARKET[x] for x in "bhwk")
+def _rcv(rng, shape, normalized):
+    b, h, w, k = (shape[x] for x in "bhwk")
     if normalized:
         r = rng.uniform(-1.2, 1.2, (b, k))
         c = rng.uniform(-1.2, 1.2, (b, k))
@@ -119,56 +137,78 @@ def _market_rcv(rng, normalized):
     return torch.from_numpy(rcv).cuda()
 
 
+def _raster_bound_ms(b, h, w, k):
+    """(bound, "bytes" or "operations"): each input read once, the output
+    written once, at the data sheet's rates."""
+    bytes_ms = (b * k * 3 * 4 + b * h * w * k * 4) / HBM_BYTES_PER_S * 1e3
+    ops = (b * h * w * k * RASTER_OPS_PER_ELEMENT
+           + b * h * k * RASTER_OPS_PER_SPAN)
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else \
+        "operations"
+
+
 def phase_kernels():
     from dpig_tpu_torch.kernels.pose_raster import render_pose_maps_cuda
     from dpig_tpu_torch.ops.pose import render_pose_maps_plain
-    b, h, w, k = (MARKET[x] for x in "bhwk")
     rng = np.random.default_rng(0)
-    row = {}
-    for normalized in (False, True):
-        rcv = _market_rcv(rng, normalized)
-        out = render_pose_maps_cuda(rcv, h, w, k, 4, normalized)
-        ref = render_pose_maps_plain(rcv, h, w, k, 4, normalized)
-        torch.cuda.synchronize()
-        equal = bool(torch.equal(out, ref))
-        err = float((out - ref).abs().max())
-        on = float((out > 0).float().mean())
+    rows = []
+    for label, shape in RASTER_SHAPES.items():
+        b, h, w, k = (shape[x] for x in "bhwk")
+        bound_ms, bound_by = _raster_bound_ms(b, h, w, k)
 
-        def kernel():
-            return render_pose_maps_cuda(rcv, h, w, k, 4, normalized)
+        def fill():
+            return torch.empty((b, h, w, k), device="cuda").fill_(-1.0)
 
-        def plain():
-            return render_pose_maps_plain(rcv, h, w, k, 4, normalized)
+        fills = [_graph_ms(fill)]
+        for normalized in (False, True):
+            rcv = _rcv(rng, shape, normalized)
+            out = render_pose_maps_cuda(rcv, h, w, k, 4, normalized)
+            ref = render_pose_maps_plain(rcv, h, w, k, 4, normalized)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(out, ref))
+            err = float((out - ref).abs().max())
+            on = float((out > 0).float().mean())
 
-        ms, plain_ms = _graph_ms(kernel), _graph_ms(plain)
-        mode = "normalized" if normalized else "pixel"
-        print(f"[kernels] pose_raster {mode} coords B={b} {h}x{w} K={k}: "
-              f"bit_equal={equal} max_abs_err={err} on_fraction={on:.4f} | "
-              f"device time (CUDA graph): kernel {ms * 1e3:.2f} us, plain "
-              f"{plain_ms * 1e3:.2f} us", flush=True)
-        if not equal:
-            raise AssertionError(f"pose_raster ({mode}) differs from its "
-                                 f"plain version: max abs err {err}")
-        if not normalized:  # the main path's mode
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bit_equal=equal)
-    bytes_moved = b * k * 3 * 4 + b * h * w * k * 4
-    ops = b * h * w * k * 6   # 2 sub, 2 mul, 1 add, 1 compare per element
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"[kernels] pose_raster bound: {bytes_moved} B -> "
-          f"{bytes_ms * 1e3:.3f} us, {ops} int ops -> {ops_ms * 1e3:.3f} us",
-          flush=True)
+            def kernel():
+                return render_pose_maps_cuda(rcv, h, w, k, 4, normalized)
+
+            def plain():
+                return render_pose_maps_plain(rcv, h, w, k, 4, normalized)
+
+            ms, plain_ms = _graph_ms(kernel), _graph_ms(plain)
+            mode = "normalized" if normalized else "pixel"
+            rows.append(dict(shape=label, mode=mode, bit_equal=equal,
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             share_of_bound=bound_ms / ms))
+            print(f"[kernels] pose_raster {mode} coords B={b} {h}x{w} K={k}: "
+                  f"bit_equal={equal} max_abs_err={err} on_fraction={on:.4f} "
+                  f"| device time (CUDA graph): kernel {ms * 1e3:.3f} us, "
+                  f"plain {plain_ms * 1e3:.3f} us, bound {bound_ms * 1e3:.3f} "
+                  f"us ({bound_by}), kernel at {bound_ms / ms:.1%} of it",
+                  flush=True)
+            if not equal:
+                raise AssertionError(f"pose_raster ({mode}, {label}) differs "
+                                     f"from its plain version: max abs err "
+                                     f"{err}")
+        fills.append(_graph_ms(fill))
+        for row in rows[-2:]:
+            row["fill_ms"] = min(fills)
+        print(f"[kernels] fill_ yardstick {label} {(b, h, w, k)}: "
+              f"{fills[0] * 1e3:.3f} us before the kernels, "
+              f"{fills[1] * 1e3:.3f} us after; {b * h * w * k * 4} B, "
+              f"{b * h * w * k * 4 / min(fills) / 1e6:.1f} GB/s at the "
+              f"faster", flush=True)
+    main = rows[0]   # Market, pixel coords: the main path's call
     return {"name": "pose_raster", "route": "cuda",
             "source": "dpig_tpu_torch/csrc/pose_raster.cu",
             "replaces": "dpig_tpu/ops/pose_pallas.py:72",
-            "launches": None, "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "bit_equal": row["bit_equal"],
-            "kernel_ms": row["ms"], "bound_us": bound_ms * 1e3}
+            "launches": None, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "bit_equal": main["bit_equal"],
+            "fill_ms": main["fill_ms"], "shapes": rows}
 
 
 def phase_slice(model_dir):

@@ -5,7 +5,8 @@ first use it is compiled by `nvcc` for sm_90a into a shared library under
 `kernels/_build/`, named by a hash of the source and the flags, and loaded
 with ctypes. Nothing here runs at import time, so the CPU tests import the
 package on machines without `nvcc`. A failed build raises with the
-compiler's output.
+compiler's output; a good one keeps it (`ptxas -v`: registers, shared
+memory and spills per kernel) beside the library, see `build_log`.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "kernels", "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -47,7 +48,18 @@ def _compile(name: str, out: str) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (exit "
                            f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    with open(f"{out}.log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed when it built `csrc/<name>.cu` ('' if unknown)."""
+    path = f"{library_path(name)}.log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def load(name: str) -> ctypes.CDLL:

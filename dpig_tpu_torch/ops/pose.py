@@ -35,6 +35,14 @@ def pose_rcv_normalize(rcv: torch.Tensor, img_h: int,
     return torch.stack([r, c, rcv[..., 2]], dim=-1)
 
 
+def _to_int32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 as XLA converts: NaN -> 0, out-of-range values
+    saturate (torch's own cast is undefined there; on the CPU it gives
+    INT_MIN for NaN). The upper clamp is the largest float32 below 2^31."""
+    x = torch.nan_to_num(x, nan=0.0)
+    return torch.clamp(x, -2.0 ** 31, 2.0 ** 31 - 128.0).to(torch.int32)
+
+
 def render_pose_maps_plain(rcv: torch.Tensor, img_h: int, img_w: int,
                            keypoint_num: int = 18, radius: int = 4,
                            normalized: bool = False) -> torch.Tensor:
@@ -47,14 +55,14 @@ def render_pose_maps_plain(rcv: torch.Tensor, img_h: int, img_w: int,
     rcv = rcv.reshape(b, keypoint_num, 3).to(torch.float32)
     if normalized:
         rcv = pose_rcv_denormalize(rcv, img_h, img_w)
-        r = torch.floor(rcv[..., 0]).to(torch.int32)
-        c = torch.floor(rcv[..., 1]).to(torch.int32)
+        r = _to_int32(torch.floor(rcv[..., 0]))
+        c = _to_int32(torch.floor(rcv[..., 1]))
         in_bounds = torch.ones_like(r, dtype=torch.bool)
     else:
         # Raw pixel coords truncate toward zero (tf.to_int32) and the
         # reference scatter drops out-of-range keypoints.
-        r = torch.trunc(rcv[..., 0]).to(torch.int32)
-        c = torch.trunc(rcv[..., 1]).to(torch.int32)
+        r = _to_int32(torch.trunc(rcv[..., 0]))
+        c = _to_int32(torch.trunc(rcv[..., 1]))
         in_bounds = (r >= 0) & (r < img_h) & (c >= 0) & (c < img_w)
     vis = (rcv[..., 2] > 0.0) & in_bounds                      # [B, K]
 

@@ -1,8 +1,11 @@
 """The CUDA pose rasterizer on the card: bit-equal to its plain version
 over shapes, radii and coordinate edges beyond the Market shape that
-chip_smoke.py checks; one counted launch per call; no route from a CUDA
-tensor to the plain version; bad inputs refused before launch. And the
-model-12 tester on the card runs float32 with PyTorch's TF32 flags on.
+chip_smoke.py checks (rows whose W*K is not a multiple of 4, which the
+kernel stores in scalar heads and tails; every keypoint offset around a
+small image at radius 0-12; NaN and huge coordinates); one counted launch
+per call; no route from a CUDA tensor to the plain version; bad inputs
+refused before launch. And the model-12 tester on the card runs float32
+with PyTorch's TF32 flags on.
 
 Marked `cuda` and skipped without a card. On a machine with one (JAX is not
 needed there, hence no conftest):
@@ -35,18 +38,24 @@ def card():
 def _rcv(seed, b, h, w, k, normalized):
     """Random keypoints plus the edges of both coordinate rules: exact
     integers, the image border, just outside it, negative fractions (which
-    truncate to 0) and invisible ones."""
+    truncate to 0), a normalized coordinate that lands on exactly H - 1 or
+    W - 1, NaN (converted to 0, as XLA does) and +-3e9 (saturated), and
+    invisible ones."""
     rng = np.random.default_rng(seed)
     if normalized:
         r = rng.uniform(-1.3, 1.3, (b, k))
         c = rng.uniform(-1.3, 1.3, (b, k))
-        edges_r = [-1.0, 1.0, 0.0, -0.999, 0.999, 1.5]
-        edges_c = [1.0, -1.0, 0.5, 0.999, -0.999, -1.5]
+        edges_r = [-1.0, 1.0, 0.0, -0.999, 0.999, 1.5, 1 - 2 / h,
+                   np.nan, 0.3, 3e9, -3e9, 0.1, 0.2]
+        edges_c = [1.0, -1.0, 0.5, 0.999, -0.999, -1.5, 1 - 2 / w,
+                   0.3, np.nan, 0.1, 0.2, 3e9, -3e9]
     else:
         r = rng.uniform(-10, h + 10, (b, k))
         c = rng.uniform(-10, w + 10, (b, k))
-        edges_r = [0.0, h - 1, h, -0.5, h - 0.5, 3.0]
-        edges_c = [w - 1, 0.0, -0.5, w, w - 0.01, 2.0]
+        edges_r = [0.0, h - 1, h, -0.5, h - 0.5, 3.0,
+                   np.nan, 3.0, 3e9, -3e9, 2.0, 2.0]
+        edges_c = [w - 1, 0.0, -0.5, w, w - 0.01, 2.0,
+                   5.0, np.nan, 2.0, 2.0, 3e9, -3e9]
     n = min(k, len(edges_r))
     r[0, :n], c[0, :n] = edges_r[:n], edges_c[:n]
     v = (rng.uniform(size=(b, k)) > 0.25).astype(np.float64)
@@ -54,10 +63,15 @@ def _rcv(seed, b, h, w, k, normalized):
     return np.stack([r, c, v], -1).astype(np.float32).reshape(b, k * 3)
 
 
+# W*K mod 4: 0 (Market, 256x256, 128x64x7, 32x16x18), 1 (20x9x1, 13x5,
+# 1x1), 2 (23x18, 1x2, 3x130 with K above the block's 128 threads), 3 (7x9,
+# 1x3: a row shorter than one float4).
 @pytest.mark.parametrize("normalized", [False, True])
 @pytest.mark.parametrize("b,h,w,k,radius", [
     (16, 128, 64, 18, 4), (16, 256, 256, 18, 4), (3, 37, 23, 18, 4),
-    (2, 32, 16, 18, 0), (1, 20, 9, 1, 9), (5, 128, 64, 7, 2)])
+    (2, 32, 16, 18, 0), (1, 20, 9, 1, 9), (5, 128, 64, 7, 2),
+    (1, 9, 13, 5, 12), (2, 5, 1, 1, 3), (2, 6, 1, 2, 2), (2, 11, 3, 130, 5),
+    (2, 7, 7, 9, 3), (3, 6, 1, 3, 2)])
 def test_kernel_bit_equal_to_plain(card, b, h, w, k, radius, normalized):
     rcv = torch.from_numpy(_rcv(b * h + k, b, h, w, k, normalized)).to(card)
     before = pose_raster.launches
@@ -70,6 +84,26 @@ def test_kernel_bit_equal_to_plain(card, b, h, w, k, radius, normalized):
     # the same on the CPU: the plain version is device-independent
     assert torch.equal(out.cpu(), pose.render_pose_maps(rcv.cpu(), h, w, k,
                                                         radius, normalized))
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+@pytest.mark.parametrize("radius", range(13))
+def test_kernel_radius_and_offset_sweep(card, radius, normalized):
+    """Sample b holds keypoint k at pixel (b - 2, k - 2): every row and
+    column offset of a 9x6 image, its borders and two pixels beyond."""
+    h, w = 9, 6
+    rr, cc = np.meshgrid(np.arange(-2, h + 2), np.arange(-2, w + 2),
+                         indexing="ij")
+    b, k = rr.shape
+    rcv = torch.from_numpy(
+        np.stack([rr, cc, np.ones_like(rr)], -1).astype(np.float32))
+    if normalized:
+        rcv = pose.pose_rcv_normalize(rcv, h, w)
+    rcv = rcv.reshape(b, k * 3).to(card)
+    out = pose.render_pose_maps(rcv, h, w, k, radius, normalized)
+    assert torch.equal(out, pose.render_pose_maps_plain(rcv, h, w, k, radius,
+                                                        normalized))
+    assert (out > 0).any()
 
 
 def test_cuda_tensor_never_reaches_the_plain_version(card, monkeypatch):
@@ -149,4 +183,19 @@ def test_wrapper_refuses_bad_inputs(card):
             32, 16)
     with pytest.raises(ValueError, match="radius"):
         pose_raster.render_pose_maps_cuda(rcv, 32, 16, radius=-1)
+    with pytest.raises(ValueError, match="radius"):
+        pose_raster.render_pose_maps_cuda(rcv, 32, 16, radius=46341)
+    with pytest.raises(ValueError, match="under 2"):  # (H-1)^2 + (W-1)^2
+        pose_raster.render_pose_maps_cuda(rcv[:1, :3], 40000, 40000, 1)
+    many = pose_raster.MAX_KEYPOINTS + 1
+    with pytest.raises(ValueError, match="at most"):
+        pose_raster.render_pose_maps_cuda(
+            torch.zeros(1, many * 3, device=card), 2, 2, many)
     assert pose_raster.launches == before
+
+
+def test_empty_output_launches_nothing(card):
+    before = pose_raster.launches
+    out = pose_raster.render_pose_maps_cuda(
+        torch.zeros(0, 18 * 3, device=card), 32, 16)
+    assert out.shape == (0, 32, 16, 18) and pose_raster.launches == before

@@ -43,6 +43,46 @@ def test_render_pose_maps_matches_jax_and_pallas(rng, normalized, radius):
     assert (port == 1).any() and (port == -1).any()
 
 
+@pytest.mark.parametrize("normalized", [False, True])
+def test_nan_and_huge_coords_convert_as_xla_does(rng, normalized):
+    """XLA converts float32 -> int32 with NaN -> 0 and saturation, so JAX
+    draws a NaN row or column at 0 and drops +-3e9 (pixel coords) or clips
+    it to the border (normalized coords)."""
+    rcv = _rcv(rng, normalized)
+    x, y = (0.3, -0.4) if normalized else (5.0, 2.0)
+    odd = [(np.nan, x), (y, np.nan), (3e9, y), (-3e9, y), (x, 3e9),
+           (x, -3e9)]
+    for k, (r, c) in enumerate(odd):
+        rcv[0, k] = (r, c, 1.0)
+    flat = rcv.reshape(B, K * 3)
+    port = tpose.render_pose_maps(torch.from_numpy(flat), H, W, K, 4,
+                                  normalized).numpy()
+    ref = np.asarray(jpose.render_pose_maps(jnp.asarray(flat), H, W, K, 4,
+                                            normalized))
+    np.testing.assert_array_equal(port, ref)
+    assert (port[0, 0, :, 0] == 1).any() and (port[0, :, 0, 1] == 1).any()
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+@pytest.mark.parametrize("radius", range(13))
+def test_radius_and_offset_sweep_matches_jax(radius, normalized):
+    """Sample b holds keypoint k at pixel (b - 2, k - 2): every row and
+    column offset of a 9x6 image, its borders and two pixels beyond."""
+    h, w = 9, 6
+    rr, cc = np.meshgrid(np.arange(-2, h + 2), np.arange(-2, w + 2),
+                         indexing="ij")
+    b, k = rr.shape
+    rcv = np.stack([rr, cc, np.ones_like(rr)], -1).astype(np.float32)
+    if normalized:
+        rcv = np.array(jpose.pose_rcv_normalize(jnp.asarray(rcv), h, w))
+    flat = rcv.reshape(b, k * 3)
+    port = tpose.render_pose_maps(torch.from_numpy(flat), h, w, k, radius,
+                                  normalized).numpy()
+    ref = np.asarray(jpose.render_pose_maps(jnp.asarray(flat), h, w, k,
+                                            radius, normalized))
+    np.testing.assert_array_equal(port, ref)
+
+
 def test_rcv_normalize_roundtrip_and_helpers(rng):
     rcv = _rcv(rng, False)
     t = torch.from_numpy(rcv)
