@@ -26,13 +26,35 @@ Phases, each printing one line; any failure exits non-zero:
               within a stated tolerance, also with PyTorch's TF32 flags on
               (the tester runs float32 whatever they say); the same forward
               past the tester's float32 guard, with TF32 on, must exceed
-              the tolerance, which shows the check can see that fault.
+              the tolerance, which shows the check can see that fault;
+  6. train    model-1 Stage-I training through the CLI entry point
+              (`dpig_tpu_torch.main --model=1`) at full Market width,
+              batch 16, the re-forward D step, TRAIN_STEPS steps with
+              log_step TRAIN_LOG_STEP: finite metrics, per-step ms,
+              metrics.jsonl at the logged steps, previews and the final
+              checkpoint written, the pose kernel launched exactly once per
+              step plus once per preview and once for the fixed pose
+              preview; then a fresh Trainer on the same model_dir resumes
+              at the saved step with params, optimizer moments and BN
+              buffers equal to the checkpoint's;
+  7. train parity  one train step, batch 2 at full width, on the card and
+              on the CPU from the same weights, the card's D step starting
+              from the CPU's updated G: the losses, the G and D gradients
+              and the D's running statistics within TRAIN_PARITY_TOL, also
+              with the TF32 flags on; the same step past the float32 guard,
+              TF32 on, must exceed the G gradient tolerance, and the step
+              with only its forwards guarded (TF32 in the backward passes
+              alone) the D gradient one. Then, with the L1 term alone as
+              the G objective, the generator's gradients within
+              L1_GRAD_TOL, and TF32 in the backward passes alone must
+              exceed it.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is {"kernels": [...]}, with the pose kernel's
+launches on each path; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -61,6 +83,31 @@ RASTER_SHAPES = {"Market": MARKET, "256x256": dict(b=16, h=256, w=256, k=18)}
 # 6.0e-4 and 4.5e-3 with TF32 on: 1e-4 sits between the two on both, at
 # least 5x from each reading (PERF.md, "Card vs CPU").
 PARITY_TOL = 1e-4
+TRAIN_STEPS, TRAIN_LOG_STEP = 6, 2
+# Card vs CPU limits for one train step, batch 2 at full width (keys of
+# `train.parity.step_errors`). The G-step losses and the G gradients come
+# before any update; the card's D step starts from the CPU's updated G
+# (the first Adam step is sign-like: a gradient near 0 moves its parameter
+# by +-lr by the sign each side computes), so d_loss, the D gradients and
+# the D's statistics see only the two sides' own rounding. On an NVIDIA
+# H100 80GB HBM3 at 700 W this phase read in three runs, float32 (the
+# same with the TF32 flags on): G-step losses 1.1e-6, d_loss 2.0e-6 to
+# 3.2e-6, Encoder 1.0e-3, ID_AE 1.3e-3, Discriminator 5.7e-6 to 6.0e-6,
+# d_stats 6.6e-7 to 7.2e-7. Past the float32 guard with TF32 on: 1.6e-3,
+# 1.8e-4 to 1.3e-3, 8.9e-2, 9.9e-2, 3.4e-2 to 4.1e-2, 1.8e-4 to 2.3e-4.
+# TF32 in the backward passes alone: Discriminator 8.5e-4 to 8.7e-4, the
+# rest as in float32. The G gradients of this model are only good to ~1e-3 in
+# float32 at batch 2 (the CPU's float32 against its float64: 1.7e-3 for
+# the adversarial term, scripts/port_grad_precision.py), so a TF32
+# backward hides in them; the D gradients and the L1 term below show it.
+TRAIN_PARITY_TOL = {"g_step_losses": 1e-5, "d_loss": 1e-5, "Encoder": 5e-3,
+                    "ID_AE": 5e-3, "Discriminator": 1e-4, "d_stats": 1e-5}
+# The generator's gradients of the L1 term alone (adversarial term
+# weighted 0): 2.4e-5 in float32 and with the TF32 flags on, 4.9e-4 with
+# TF32 in the backward passes alone (same card). The encoder's read
+# 8.1e-4 and 1.1e-3 and are shown, not checked.
+L1_GRAD_TOL = {"ID_AE": 1e-4}
+G_NETS = ("Encoder", "ID_AE")
 
 
 def _graph_ms(fn, reps: int = 25, inner: int = 20) -> float:
@@ -335,19 +382,239 @@ def phase_parity(card_tester, model_dir):
                              "check cannot tell TF32 from float32")
 
 
+def _expected_train_launches(cfg) -> int:
+    """Pose-kernel launches of a Trainer run from step 0 to cfg.max_step:
+    one per train step, one for the fixed pose preview, one per preview
+    (step 0 and every 3 * log_step steps, train/harness.py)."""
+    every = 3 * cfg.log_step
+    previews = sum(1 for s in range(cfg.max_step)
+                   if s == 0 or s % every == every - 1)
+    return cfg.max_step + 1 + previews
+
+
+def phase_train(model_dir):
+    """Model 1 through the CLI entry point at full width, then a fresh
+    Trainer on the same model_dir auto-resumes from the checkpoint."""
+    from dpig_tpu_torch import main as port_main
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data.synthetic import SyntheticLoader
+    from dpig_tpu_torch.kernels import pose_raster
+    from dpig_tpu_torch.train import checkpoint as ckpt
+    from dpig_tpu_torch.train.harness import Trainer
+
+    argv = ["--model=1", "--synthetic_data=true",
+            f"--max_step={TRAIN_STEPS}", f"--log_step={TRAIN_LOG_STEP}",
+            f"--model_dir={model_dir}"]
+    step_ms, metrics_seen = [], []
+    train_step = Stage1App.train_step
+
+    def timed_step(app, state, batch):  # synchronized, so ms are the card's
+        t0 = time.perf_counter()
+        metrics = train_step(app, state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics_seen.append({k: float(v) for k, v in metrics.items()})
+        return metrics
+
+    Stage1App.train_step = timed_step
+    try:
+        pose_raster.launches = 0
+        t0 = time.perf_counter()
+        port_main.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = pose_raster.launches
+    finally:
+        Stage1App.train_step = train_step
+
+    cfg = Config(model_dir=model_dir, max_step=TRAIN_STEPS,
+                 log_step=TRAIN_LOG_STEP)
+    if (cfg.img_H, cfg.img_W, cfg.conv_hidden_num, cfg.z_num,
+            cfg.batch_size, cfg.fast_gan_step) != (128, 64, 128, 64, 16,
+                                                   False):
+        raise AssertionError("Config() defaults are not the Market model")
+    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    files = sorted(os.listdir(model_dir))
+    previews = [f for f in files if "_G_ssim" in f]
+    saved = ckpt.latest_checkpoint(model_dir)
+    expected = _expected_train_launches(cfg)
+    finite = all(np.isfinite(v) for m in metrics_seen for v in m.values())
+    print(f"[train] model 1 {cfg.img_H}x{cfg.img_W} hidden "
+          f"{cfg.conv_hidden_num} z {cfg.z_num} batch {cfg.batch_size}, "
+          f"{TRAIN_STEPS} steps, log_step {TRAIN_LOG_STEP}: wall {wall:.1f} "
+          f"s; per-step ms after the first "
+          f"{[round(x, 2) for x in step_ms[1:]]} (first {step_ms[0]:.1f}); "
+          f"{cfg.batch_size * 1e3 / statistics.median(step_ms[1:]):.2f} "
+          f"images/s at the median; metrics.jsonl steps "
+          f"{[r['step'] for r in logged]}; L1Loss "
+          f"{[round(m['L1Loss'], 4) for m in metrics_seen]}; finite={finite}"
+          f"; previews {previews}; checkpoint {saved}; pose kernel launches "
+          f"{launches} (expected {expected})", flush=True)
+    if launches != expected:
+        raise AssertionError(f"pose kernel launched {launches} times, "
+                             f"expected {expected}")
+    if not finite or len(metrics_seen) != TRAIN_STEPS:
+        raise AssertionError(f"train metrics {metrics_seen}")
+    want_steps = [s for s in range(TRAIN_STEPS)
+                  if s == 0 or s % TRAIN_LOG_STEP == TRAIN_LOG_STEP - 1]
+    if [r["step"] for r in logged] != want_steps or not all(
+            np.isfinite(v) for r in logged for v in r.values()):
+        raise AssertionError(f"metrics.jsonl {logged}")
+    if len(previews) != expected - TRAIN_STEPS - 1 or not {
+            "x_fixed.png", "pose_fixed.png", "mask_fixed.png"} <= set(files):
+        raise AssertionError(f"preview files {files}")
+    if saved is None or not saved.endswith(f"step_{TRAIN_STEPS:08d}"):
+        raise AssertionError(f"checkpoint {saved}")
+
+    app = Stage1App(cfg, torch.device("cuda"))  # fresh weights, same seed
+    loader = SyntheticLoader(cfg.batch_size, cfg.img_H, cfg.img_W)
+    resumed = ckpt.state_tree(Trainer(cfg, app, loader).init_state())
+    stored = torch.load(os.path.join(saved, ckpt.STATE_FILE),
+                        map_location="cpu", weights_only=True)
+    unequal = _tree_differences(resumed, stored)
+    print(f"[train] resume: a fresh Trainer on the model_dir starts at step "
+          f"{resumed['step']}; params, optimizer moments and BN buffers "
+          f"equal to the checkpoint's: {not unequal}", flush=True)
+    if resumed["step"] != TRAIN_STEPS or unequal:
+        raise AssertionError(f"resume differs from the checkpoint: "
+                             f"{unequal[:5]}")
+    return launches
+
+
+def _tree_differences(got, want, path=""):
+    """Paths where two checkpoint trees differ (tensors bit for bit)."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [path]
+        return [d for k in want
+                for d in _tree_differences(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, torch.Tensor):
+        return [] if torch.equal(got, want) else [path]
+    return [] if got == want else [path]
+
+
+def _train_step_unguarded(app, state, batch, mark):
+    """Stage1App.train_step with the modules called straight, past the
+    float32 guard, so that the caller's TF32 flags reach cuDNN and cuBLAS
+    in the forwards and in the backward passes."""
+    from dpig_tpu_torch.apps.common import l1_loss, masked_l1_loss
+    from dpig_tpu_torch.losses import gan
+    x, pose, mask, bbox, vis = app.step_inputs(batch)
+    g_raw, _ = app.generator(app.encoder(x, mask, bbox, vis), pose)
+    adv = gan.g_loss("dcgan", app.disc(g_raw))
+    l1 = l1_loss(g_raw, x)
+    g_total = adv + app.cfg.L1Loss_weight * l1
+    state.g_opt.step(torch.autograd.grad(g_total, state.g_params))
+    mark("g_update")
+    with torch.no_grad():
+        fake, _ = app.generator(app.encoder(x, mask, bbox, vis), pose)
+    d_total = gan.d_loss("dcgan", app.disc(x, update_stats=True),
+                         app.disc(fake, update_stats=True))
+    state.d_opt.step(torch.autograd.grad(d_total, state.d_params))
+    state.step += 1
+    metrics = {"g_loss": g_total, "g_loss_only": adv, "d_loss": d_total,
+               "L1Loss": l1, "PoseMaskLoss": masked_l1_loss(g_raw, x, mask)}
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+@contextlib.contextmanager
+def _l1_term_only():
+    """The G objective with its adversarial term weighted 0, so that the G
+    gradients are the L1 term's alone (the D still runs in the G step)."""
+    from dpig_tpu_torch.losses import gan
+    g_loss = gan.g_loss
+    gan.g_loss = lambda mode, d_fake: 0.0 * g_loss(mode, d_fake)
+    try:
+        yield
+    finally:
+        gan.g_loss = g_loss
+
+
+def phase_train_parity(model_dir):
+    """One train step, batch 2 at full width, default variant, from the
+    same weights on the card and on the CPU, the card's D step from the
+    CPU's updated G: float32, with the TF32 flags on, and two controls with
+    TF32 on (past the float32 guard; the forwards alone guarded, so TF32 in
+    the backward passes alone). Then the same with the L1 term alone as
+    the G objective (see TRAIN_PARITY_TOL)."""
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data.synthetic import SyntheticLoader
+    from dpig_tpu_torch.train.parity import recorded_train_step, step_errors
+    batch = next(SyntheticLoader(2, 128, 64, seed=99))
+    cfgs = {p: Config(platform=p, batch_size=2, model_dir=model_dir)
+            for p in ("", "cpu")}
+    runs = {"float32": (False, None), "TF32 flags on": (True, None),
+            "control: past the guard, TF32": (True, _train_step_unguarded),
+            "control: forwards guarded only, TF32": (
+                True, Stage1App.train_step.__wrapped__)}
+    errs = {}
+    for term, context in (("G objective", contextlib.nullcontext),
+                          ("L1 term", _l1_term_only)):
+        with context():
+            ref = recorded_train_step(
+                Stage1App(cfgs["cpu"], torch.device("cpu")), batch)
+            for label, (tf32, step_fn) in runs.items():
+                if term == "L1 term" and "past the guard" in label:
+                    continue
+                _set_tf32(tf32)
+                try:
+                    got = recorded_train_step(
+                        Stage1App(cfgs[""], torch.device("cuda")), batch,
+                        step_fn, g_updated=ref.g_updated)
+                finally:
+                    _set_tf32(False)
+                errs[term, label] = step_errors(ref, got)
+            del ref, got
+    tols = {"G objective": TRAIN_PARITY_TOL, "L1 term": L1_GRAD_TOL}
+    for (term, label), e in errs.items():
+        print(f"[train parity] {term}, {label}: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in e.items()
+            if term == "G objective" or k.split()[0] in G_NETS), flush=True)
+    print(f"[train parity] card vs CPU, one step, batch 2 at full width "
+          f"(losses: relative diff; sub-nets: gradient ||diff|| / ||grad||, "
+          f"'max': max|diff| / max|grad|; d_stats: max abs diff); "
+          f"tolerances {tols}", flush=True)
+    for term, tol in tols.items():
+        for label in ("float32", "TF32 flags on"):
+            if any(errs[term, label][k] > t for k, t in tol.items()):
+                raise AssertionError(f"card and CPU train steps disagree "
+                                     f"beyond the tolerances ({term}, "
+                                     f"{label})")
+    guarded_forwards = "control: forwards guarded only, TF32"
+    for term, label, keys in (
+            ("G objective", "control: past the guard, TF32", G_NETS),
+            ("G objective", guarded_forwards, ("Discriminator",)),
+            ("L1 term", guarded_forwards, ("ID_AE",))):
+        if any(errs[term, label][k] <= tols[term][k] for k in keys):
+            raise AssertionError(f"a TF32 train step passes the {keys} "
+                                 f"gradient tolerance ({term}, {label}): "
+                                 f"the check cannot see TF32")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card",
               file=sys.stderr)
         return 1
     import dpig_tpu_torch  # noqa: F401  (fails outside a checkout)
+    t_start = time.perf_counter()
     name = phase_device()
     phase_build()
     kernel = phase_kernels()
     with tempfile.TemporaryDirectory() as tmp:
-        tester, launches = phase_slice(os.path.join(tmp, "m12"))
-        kernel["launches"] = launches
+        tester, model12 = phase_slice(os.path.join(tmp, "m12"))
         phase_parity(tester, os.path.join(tmp, "m12_cpu"))
+        del tester
+        train = phase_train(os.path.join(tmp, "m1"))
+        phase_train_parity(os.path.join(tmp, "m1_parity"))
+    kernel["launches"] = model12 + train
+    kernel["launches_by_path"] = {"model 12 transfer": model12,
+                                  "model 1 training": train}
+    print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

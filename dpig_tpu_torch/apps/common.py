@@ -1,4 +1,4 @@
-"""Shared glue for the model apps (port of `dpig_tpu/apps/common.py:26-48`)
+"""Shared glue for the model apps (port of `dpig_tpu/apps/common.py:26-57`)
 plus the port's device rule."""
 from __future__ import annotations
 
@@ -46,3 +46,13 @@ def pose_maps_from_batch(batch: Mapping[str, torch.Tensor], cfg: Config,
     batch's device (the CUDA kernel on the card)."""
     return render_pose_maps(batch[key], cfg.img_H, cfg.img_W,
                             cfg.keypoint_num, radius=4, normalized=False)
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(a - b))
+
+
+def masked_l1_loss(a: torch.Tensor, b: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """PoseMaskLoss (trainer.py:606): mean(|a-b| * mask)."""
+    return torch.mean(torch.abs(a - b) * mask)

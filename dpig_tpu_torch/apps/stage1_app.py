@@ -1,30 +1,41 @@
-"""Stage-I appearance reconstruction, inference half (port of
-`dpig_tpu/apps/stage1_app.py:34-112,166-176`; reference trainer.py:567-625).
+"""Stage-I appearance reconstruction, model 1 (port of
+`dpig_tpu/apps/stage1_app.py`; reference trainer.py:567-625).
 
 Market 128x64 family: FG/BG two-branch ROI encoder -> 352-d embedding +
-18-ch pose map -> U-net generator; DCGAN image discriminator. The training
-step (`train_step`) comes with the training slice.
+18-ch pose map -> U-net generator; DCGAN image discriminator; G loss =
+adv + 20*L1; 1 critic iteration per G iteration. `train_step` is one G
+update then one D update on the nets in place; `generate_step` /
+`transfer_step` are the inference half the testers use.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
 from ..bridge import load_state
 from ..config import Config
+from ..losses import gan
 from ..models.discriminators import get_discriminator
 from ..models.encoders import RoiEncoderFgBg
 from ..models.generator import UAEGenerator
 from ..models.layers import init_weights
+from ..train.state import GanState
+from .common import l1_loss, masked_l1_loss, pose_maps_from_batch, select_parts
+
+GAN_MODE = "dcgan"  # trainer.py:257
+TRAIN_PHASES = ("inputs", "g_forward", "g_backward", "g_update",
+                "g_reforward", "d_forward_backward", "d_update")
 
 
 @contextlib.contextmanager
 def full_float32():
     """cuDNN convs and cuBLAS matmuls in float32, not TF32, inside the block
     whatever the caller's flags (PyTorch lets cuDNN convs use TF32 by
-    default); the flags are restored after. Also a decorator."""
+    default); the flags are restored after. Also a decorator. The flags are
+    global, so they also hold for backward passes that autograd runs on its
+    device threads while the block is open."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     saved = cudnn.allow_tf32, matmul.allow_tf32
     cudnn.allow_tf32 = matmul.allow_tf32 = False
@@ -35,12 +46,14 @@ def full_float32():
 
 
 class Stage1App:
-    """Encoder, generator and D of Stage I on `device`, in eval mode.
+    """Encoder, generator and D of Stage I on `device`, frozen until
+    `init_state` makes them trainable.
 
     Weights are fresh (Xavier / normal(0.02), from a CPU torch.Generator
     seeded with `cfg.random_seed`, so the CPU and the card get the same
     numbers) unless `state` from `bridge.params_from_flax` is given. The
-    app owns the precision: `compute_dtype` float32 runs every forward
+    app owns the precision: `compute_dtype` float32 runs every forward, and
+    the whole train step with its backward passes and optimizer updates,
     under `full_float32`.
     """
 
@@ -94,8 +107,94 @@ class Stage1App:
         return self._generate(embs, pose), embs
 
     @full_float32()
-    def _disc_apply(self, img, train: bool = True) -> torch.Tensor:
-        return self.disc(img, train=train)
+    def _disc_apply(self, img, train: bool = True,
+                    update_stats: bool = False) -> torch.Tensor:
+        return self.disc(img, train=train, update_stats=update_stats)
+
+    # --------------------------------------------------------------- train
+    def init_state(self) -> GanState:
+        """Make the nets trainable and wrap them with their optimizers
+        (stage1_app.py:66-93). `train_step` takes the returned state."""
+        cfg = self.cfg
+        if cfg.remat:
+            raise NotImplementedError("--remat (activation rematerialization)"
+                                      " is not ported to dpig_tpu_torch yet")
+        for m in (self.encoder, self.generator, self.disc):
+            m.requires_grad_(True)
+        return GanState.create(
+            g_nets={"Encoder": self.encoder, "ID_AE": self.generator},
+            d_nets={"Discriminator": self.disc}, mode=GAN_MODE,
+            g_lr=cfg.g_lr, d_lr=cfg.d_lr, lr_update_step=cfg.lr_update_step,
+            step=cfg.start_step)
+
+    def step_inputs(self, batch: Mapping[str, torch.Tensor]):
+        """Device batch -> (x, pose maps, fg mask, part bboxes, part vis)."""
+        bbox, vis = select_parts(batch["part_bbox"], batch["part_vis"],
+                                 self.cfg.roi_part_num)
+        return (batch["x"], pose_maps_from_batch(batch, self.cfg),
+                batch["mask_r6"], bbox, vis)
+
+    def g_loss(self, x, pose, mask, bbox, vis
+               ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """G objective adv + L1Loss_weight * L1 (trainer.py:605-623), with
+        the D normalizing by batch statistics and its running statistics
+        left alone -> (loss, g_raw, the other metrics)."""
+        g_raw, _ = self.g_forward(x, pose, mask, bbox, vis)
+        adv = gan.g_loss(GAN_MODE, self._disc_apply(g_raw))
+        l1 = l1_loss(g_raw, x)
+        loss = adv + self.cfg.L1Loss_weight * l1
+        pose_mask_loss = masked_l1_loss(g_raw.detach(), x, mask)
+        return loss, g_raw, {"g_loss_only": adv, "L1Loss": l1,
+                             "PoseMaskLoss": pose_mask_loss}
+
+    def d_loss(self, x, fake) -> torch.Tensor:
+        """D objective on the real batch, then the fake one; each pass moves
+        the D's running statistics, the fake pass from where the real pass
+        left them (stage1_app.py:151-154)."""
+        d_real = self._disc_apply(x, update_stats=True)
+        d_fake = self._disc_apply(fake, update_stats=True)
+        return gan.d_loss(GAN_MODE, d_real, d_fake)
+
+    @full_float32()
+    def train_step(self, state: GanState, batch: Mapping[str, torch.Tensor],
+                   mark: Optional[Callable[[str], None]] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One G update, then one D update (stage1_app.py:115-163), in
+        place on the nets, the D's running statistics and the optimizers of
+        `state` (from this app's `init_state`); state.step += 1. Returns the
+        five metrics as 0-d tensors on the device (reading them syncs).
+
+        Gradients are taken w.r.t. one net's parameters at a time
+        (`autograd.grad(..., inputs)`), so no `.grad` accumulates anywhere.
+        The D step scores fakes from a re-forward with the updated G
+        (reference-faithful, trainer.py:337-345), or with
+        `--fast_gan_step` the G step's own output. `mark(phase)`, if given,
+        is called after each phase of TRAIN_PHASES is enqueued (the
+        profiler's CUDA events)."""
+        mark = mark or (lambda phase: None)
+        x, pose, mask, bbox, vis = self.step_inputs(batch)
+        mark("inputs")
+        g_total, g_raw, aux = self.g_loss(x, pose, mask, bbox, vis)
+        mark("g_forward")
+        g_grads = torch.autograd.grad(g_total, state.g_params)
+        mark("g_backward")
+        state.g_opt.step(g_grads)
+        mark("g_update")
+
+        if self.cfg.fast_gan_step:
+            fake = g_raw.detach()
+        else:
+            with torch.no_grad():
+                fake, _ = self.g_forward(x, pose, mask, bbox, vis)
+        mark("g_reforward")
+        d_total = self.d_loss(x, fake)
+        d_grads = torch.autograd.grad(d_total, state.d_params)
+        mark("d_forward_backward")
+        state.d_opt.step(d_grads)
+        state.step += 1
+        mark("d_update")
+        metrics = {"g_loss": g_total, "d_loss": d_total, **aux}
+        return {k: v.detach() for k, v in metrics.items()}
 
     # ----------------------------------------------------------- generate
     @torch.inference_mode()

@@ -1,17 +1,23 @@
-"""CLI twin of the JAX package's `main.py` (:118-180) for the ported models.
+"""CLI twin of the JAX package's `main.py` for the ported models.
 
+    python -m dpig_tpu_torch.main --model=1 --synthetic_data=true \
+        --max_step=1000 --log_step=50 --model_dir=<dir>
     python -m dpig_tpu_torch.main --model=12 --is_train=false \
         --synthetic_data=true --test_batch_num=4 --model_dir=<dir>
 
-Runs model-12 pose transfer on the card (`--platform=cpu` for the CPU).
-Every other `--model`, and every option whose path is not ported yet,
-raises NotImplementedError.
+Runs Stage-I training (model 1) and model-12 pose transfer on the card
+(`--platform=cpu` for the CPU). As in the JAX package, `--model` alone
+picks training (1-4, 101-104) or testing. Every other `--model`, and every
+option whose path is not ported yet, raises NotImplementedError.
 """
 from __future__ import annotations
 
-from .apps.common import select_device
+from .apps.common import (batch_to_device, pose_maps_from_batch,
+                          select_device, select_parts)
 from .config import Config, get_config
 from .data.synthetic import SyntheticLoader
+
+TRAIN_MODELS = (1, 2, 3, 4, 101, 102, 103, 104)
 
 
 def make_loader(cfg: Config):
@@ -23,12 +29,40 @@ def make_loader(cfg: Config):
         "pass --synthetic_data=true")
 
 
+def train_model(cfg: Config):
+    """Model 1 through the Trainer (main.py:51-67); returns the final
+    GanState."""
+    if cfg.model in (2, 3, 4):
+        raise NotImplementedError(
+            f"--model={cfg.model}: the pose AE and the Stage-II samplers are "
+            "not ported to dpig_tpu_torch yet (ROADMAP queue item 3)")
+    if cfg.model != 1:
+        raise NotImplementedError(
+            f"--model={cfg.model}: the 256x256 family is not ported to "
+            "dpig_tpu_torch yet (ROADMAP queue item 4)")
+    from .apps.stage1_app import Stage1App
+    from .train.harness import Trainer
+
+    app = Stage1App(cfg, select_device(cfg.platform))
+    trainer = Trainer(cfg, app, make_loader(cfg))
+
+    def preview(state, batch, step):
+        jb = batch_to_device(batch, app.device)
+        bbox, vis = select_parts(jb["part_bbox"], jb["part_vis"],
+                                 cfg.roi_part_num)
+        imgs = app.generate_step(jb["x"], pose_maps_from_batch(jb, cfg),
+                                 jb["mask_r6"], bbox, vis)
+        trainer.preview_with_ssim(imgs.cpu().numpy(), batch["x"], step)
+
+    return trainer.train(preview_fn=preview)
+
+
 def test_model(cfg: Config) -> str:
     from .apps import testers
     if cfg.model != 12:
         raise NotImplementedError(
             f"--model={cfg.model}: dpig_tpu_torch ports model 12 (pose "
-            "transfer) only so far")
+            "transfer) only of the test models so far")
     unported = [f for f in ("test_one_by_one", "inverse_fg", "inverse_bg",
                             "inverse_pose", "interpolate_fg",
                             "interpolate_fg_up", "interpolate_fg_down",
@@ -48,7 +82,10 @@ def main(argv=None) -> None:
     select_device(cfg.platform)  # fail before writing anything
     cfg.save()
     print(f"[*] MODEL dir: {cfg.model_dir}")
-    test_model(cfg)
+    if cfg.model in TRAIN_MODELS:
+        train_model(cfg)
+    else:
+        test_model(cfg)
 
 
 if __name__ == "__main__":

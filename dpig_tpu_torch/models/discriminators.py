@@ -30,14 +30,18 @@ class DCGANDiscriminator(nn.Module):
                 ch = min(ch * 2, dim * 8)
         self.logit = Dense(h * w * ch_in, 1, init=D_INIT)
 
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = True,
+                update_stats: bool = False) -> torch.Tensor:
         """x [B, H, W, 3] NHWC -> logits [B]. `train=True` (what the
-        testers use) normalizes by batch statistics and updates nothing."""
+        testers and the G step use) normalizes by batch statistics and
+        updates nothing; `update_stats=True` (the D step) also moves each
+        BatchNorm's running statistics, as flax's mutable apply does."""
         x = x.permute(0, 3, 1, 2)
         for stage in range(self.n_stages):
             x = getattr(self, f"Conv_{stage}")(x)
             if stage > 0:
-                x = getattr(self, f"BatchNorm_{stage - 1}")(x, train)
+                x = getattr(self, f"BatchNorm_{stage - 1}")(x, train,
+                                                            update_stats)
             x = leaky_relu(x)
         return self.logit(flatten_nhwc(x)).reshape(-1)
 

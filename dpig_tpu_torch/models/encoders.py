@@ -64,8 +64,8 @@ def _apply_vis(fea: torch.Tensor, part_vis: torch.Tensor,
                part_num: int) -> torch.Tensor:
     """Visibility zeroing (encoders.py:62-80; models.py:433-442).
     fea [P*B, z] part-major; part_vis [B, P]. Returns [B, P*z]. Part
-    dropout (keep_part_prob < 1) is training-only and comes with the
-    training slice."""
+    dropout (keep_part_prob < 1) is not ported: Stage I passes no rng, so
+    model 1 never draws it."""
     pb, z = fea.shape
     b = pb // part_num
     fea = fea.reshape(part_num, b, z)

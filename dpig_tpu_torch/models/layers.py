@@ -72,10 +72,17 @@ class Dense(nn.Linear):
 
 
 class BatchNorm(nn.Module):
-    """flax `nn.BatchNorm` twin over NCHW channels (epsilon 1e-5, biased
-    variance). `train=True` normalizes by the batch's own statistics and
-    leaves the running buffers untouched, as a flax apply whose updated
-    `batch_stats` are thrown away; `train=False` uses the buffers."""
+    """flax `nn.BatchNorm(momentum=0.9)` twin over NCHW channels (epsilon
+    1e-5, biased variance). `train=True` normalizes by the batch's own
+    statistics and leaves the running buffers untouched, as a flax apply
+    whose updated `batch_stats` are thrown away; with `update_stats=True`
+    it also moves the buffers as flax's mutable apply does,
+    `ra = 0.9 * ra + 0.1 * batch_stat`, the variance being flax's fast
+    biased one, max(mean(x^2) - mean(x)^2, 0). (`F.batch_norm` with
+    buffers would store the unbiased variance.) `train=False` uses the
+    buffers."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -85,8 +92,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.eps = eps
 
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+    @torch.no_grad()
+    def _update_stats(self, x: torch.Tensor) -> None:
+        mean = x.mean((0, 2, 3))
+        var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+        m = self.MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
+    def forward(self, x: torch.Tensor, train: bool = True,
+                update_stats: bool = False) -> torch.Tensor:
         if train:
+            if update_stats:
+                self._update_stats(x)
             return F.batch_norm(x, None, None, self.weight, self.bias,
                                 training=True, momentum=0.0, eps=self.eps)
         return F.batch_norm(x, self.running_mean, self.running_var,

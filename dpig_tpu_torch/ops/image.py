@@ -28,7 +28,8 @@ def denorm_img(norm: torch.Tensor) -> torch.Tensor:
 def upscale_nn(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     """Nearest-neighbor integer upsample of an NHWC tensor
     (tf.image.resize_nearest_neighbor, reference utils.py:61-72).
-    Forward only: the training slice brings the 2x2-sum gradient."""
+    Autograd through the expand and reshape sums each scale x scale group
+    of the output gradient, the JAX package's custom VJP."""
     b, h, w, c = x.shape
     x = x[:, :, None, :, None, :].expand(b, h, scale, w, scale, c)
     return x.reshape(b, h * scale, w * scale, c)

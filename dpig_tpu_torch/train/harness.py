@@ -1,0 +1,128 @@
+"""Training harness (port of `dpig_tpu/train/harness.py`; the reference's
+train() loop, trainer.py:326-366): fixed-batch previews, periodic metrics
+logging, periodic checkpoints, auto-resume. The LR schedule lives in the
+optimizers (`train/state.py`).
+
+Observability: metrics go to `<model_dir>/metrics.jsonl` and stdout,
+previews to PNG grids with the mean SSIM in the file name
+(trainer.py:522-524). Not ported yet: TensorBoard events and the device
+mesh (one card per run).
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Callable, Dict, Iterator, Optional
+
+import numpy as np
+
+from ..apps.common import batch_to_device
+from ..config import Config
+from ..eval.metrics import ssim_images
+from ..ops.pose import render_pose_maps
+from ..utils.viz import pose_to_gray, save_image
+from . import checkpoint as ckpt
+from .state import GanState
+
+
+class Trainer:
+    """Drives an app exposing `device`, `init_state()` and
+    `train_step(state, batch)` on the loader's numpy batches."""
+
+    def __init__(self, cfg: Config, app: Any,
+                 loader: Iterator[Dict[str, np.ndarray]]):
+        self.cfg = cfg
+        self.app = app
+        self.loader = loader
+        os.makedirs(cfg.model_dir, exist_ok=True)
+        self.metrics_path = os.path.join(cfg.model_dir, "metrics.jsonl")
+
+    # ------------------------------------------------------------- state
+    def init_state(self) -> GanState:
+        state = self.app.init_state()
+        if self.cfg.ckpt_path:
+            return ckpt.restore_into_state(self.cfg.ckpt_path, state)
+        # Preemption-safe auto-resume from the newest checkpoint in
+        # model_dir (the reference needs --ckpt_path + --start_step).
+        latest = ckpt.latest_checkpoint(self.cfg.model_dir)
+        if latest:
+            state = ckpt.restore_into_state(latest, state)
+            print(f"[*] auto-resumed from {latest} (step {state.step})",
+                  flush=True)
+        return state
+
+    # --------------------------------------------------------------- log
+    def log_metrics(self, step: int, metrics: Dict[str, float]) -> None:
+        rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
+        with open(self.metrics_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        print(f"[{step}] " + " ".join(f"{k}={v:.4f}" for k, v in rec.items()
+                                      if k != "step"), flush=True)
+
+    # ------------------------------------------------------------ loop
+    def train(self, preview_fn: Optional[Callable] = None) -> GanState:
+        """Steps from the state's step to cfg.max_step. `preview_fn(state,
+        fixed_batch, step)` runs at step 0 and every 3*log_step steps."""
+        cfg = self.cfg
+        state = self.init_state()
+
+        fixed_batch = next(self.loader)
+        self._save_fixed_previews(fixed_batch)
+
+        start = state.step
+        t_last = time.time()
+        last_logged = start - 1  # the first interval covers its own steps
+        for step in range(start, cfg.max_step):
+            batch = batch_to_device(next(self.loader), self.app.device)
+            metrics = self.app.train_step(state, batch)
+
+            if step == 0 or step % cfg.log_step == cfg.log_step - 1:
+                # Host floats first: the steps are queued on the card, and
+                # reading the losses waits for them, so the rate below
+                # covers finished steps.
+                vals = {k: float(v) for k, v in metrics.items()}
+                now = time.time()
+                ips = (cfg.batch_size * (step - last_logged)
+                       / max(now - t_last, 1e-9))
+                t_last = now
+                last_logged = step
+                self.log_metrics(step, {**vals, "imgs_per_sec": ips})
+
+            every = cfg.log_step * 3
+            if preview_fn is not None and (step == 0
+                                           or step % every == every - 1):
+                preview_fn(state, fixed_batch, step)
+
+            if step % (cfg.log_step * 30) == cfg.log_step * 30 - 1:
+                ckpt.save_checkpoint(cfg.model_dir, step, state)
+
+        ckpt.save_checkpoint(cfg.model_dir, cfg.max_step, state)
+        return state
+
+    # ------------------------------------------------------- previews
+    def _save_fixed_previews(self, batch: Dict[str, np.ndarray]) -> None:
+        """x, x_target, mask and the pose map (rendered on the app's
+        device) of the fixed preview batch."""
+        cfg, d = self.cfg, self.cfg.model_dir
+        save_image((batch["x"] + 1.0) * 127.5, f"{d}/x_fixed.png")
+        save_image((batch["x_target"] + 1.0) * 127.5,
+                   f"{d}/x_target_fixed.png")
+        rcv = batch_to_device({"pose_rcv": batch["pose_rcv"]},
+                              self.app.device)["pose_rcv"]
+        pose = render_pose_maps(rcv, cfg.img_H, cfg.img_W, cfg.keypoint_num,
+                                radius=4, normalized=False)
+        save_image(pose_to_gray(pose.cpu().numpy()), f"{d}/pose_fixed.png")
+        save_image(batch["mask_r6"] * 255.0, f"{d}/mask_fixed.png")
+
+    def preview_with_ssim(self, images_0_255: np.ndarray,
+                          x_ref: np.ndarray, step: int, tag: str = "G") -> str:
+        """Save a preview grid with the mean grayscale SSIM against x in
+        the filename."""
+        ssim_mean = float(np.mean(ssim_images(
+            images_0_255, (x_ref + 1.0) * 127.5)))
+        path = os.path.join(self.cfg.model_dir,
+                            f"{step}_{tag}_ssim{ssim_mean:.4f}.png")
+        save_image(images_0_255, path)
+        print(f"[*] Samples saved: {path}", flush=True)
+        return path

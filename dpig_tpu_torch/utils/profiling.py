@@ -1,11 +1,13 @@
-"""Where a model-12 batch spends its time on the card (the port's
-counterpart of `dpig_tpu/utils/profiling.py`, for the one ported path).
+"""Where a model-12 batch and a model-1 train step spend their time on the
+card (the port's counterpart of `dpig_tpu/utils/profiling.py`, for the
+ported paths).
 
     python -m dpig_tpu_torch.utils.profiling
 
-Runs `ConditionalTransferTester` on the card at full Market width (the
-`Config()` defaults: 128x64, hidden 128, z 64, batch 16), cold start,
-float32, and prints three breakdowns:
+Runs `ConditionalTransferTester` and `Stage1App.train_step` on the card at
+full Market width (the `Config()` defaults: 128x64, hidden 128, z 64,
+batch 16, Adam at 8e-5, the re-forward D step), cold start, float32, and
+prints five breakdowns:
 
   stages  device time of each layer of `transfer_step` (CUDA events,
           median over REPS after a warm-up): ROI encoder (stem, crop,
@@ -15,7 +17,15 @@ float32, and prints three breakdowns:
   loop    host time of each part of `run()`'s loop (synchronized): copy
           in, transfer_step, source pose map, copy out, PNG writes, SSIM;
   trace   torch.profiler over one `run()` batch: the device's busy share of
-          the batch's wall time and device time by kernel (top 12).
+          the batch's wall time and device time by kernel (top 12);
+  train   device time of each phase of a train step (CUDA events at
+          `train_step`'s phase marks, median over REPS after a warm-up):
+          G forward, G backward, G update, G re-forward, D forward and
+          backward (real and fake), D update; FLOPs and the achieved rate
+          of each; host ms per step;
+  train trace  torch.profiler over one `train_step`: wall and busy share,
+          the top kernels, and the device time of the ROI crop's backward
+          (`aten::_index_put_impl_`, an accumulating index_put_).
 
 The last line is one JSON object with every number printed. Needs a card.
 """
@@ -32,6 +42,7 @@ import numpy as np
 import torch
 
 from ..apps.common import batch_to_device, pose_maps_from_batch
+from ..apps.stage1_app import TRAIN_PHASES, Stage1App
 from ..apps.testers import ConditionalTransferTester, _save_batch_pngs
 from ..config import Config
 from ..data.synthetic import SyntheticLoader
@@ -41,6 +52,7 @@ from .viz import pose_to_gray
 STAGES = ("encode", "pose_raster", "generate", "disc_score")
 LOOP = ("copy_in", "transfer_step", "source_pose", "copy_out", "png_write",
         "ssim")
+CROP_BACKWARD_OP = "aten::_index_put_impl_"
 REPS = 5
 
 
@@ -121,6 +133,79 @@ def loop_ms(tester, loader, dirs, reps: int) -> dict:
             for i, s in enumerate(LOOP)}
 
 
+def train_phase_flops(app: Stage1App, state, batch) -> dict:
+    """FLOPs of each phase of one train step (FlopCounterMode: convs and
+    matrix products, backward ones included, from their shapes)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False)
+    flops, last = {}, [0]
+
+    def mark(phase):
+        total = counter.get_total_flops()
+        flops[phase] = total - last[0]
+        last[0] = total
+
+    with counter:
+        app.train_step(state, batch, mark)
+    return flops
+
+
+def train_phase_ms(app: Stage1App, state, batch, reps: int) -> dict:
+    """Median device ms of each phase of a train step (CUDA events)."""
+    rows = []
+    for _ in range(reps + 1):  # the first is a warm-up
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+
+        def mark(_phase):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+        app.train_step(state, batch, mark)
+        torch.cuda.synchronize()
+        rows.append([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+    return {p: statistics.median(r[i] for r in rows[1:])
+            for i, p in enumerate(TRAIN_PHASES)}
+
+
+def train_step_ms(app: Stage1App, state, loader, reps: int) -> list:
+    """Host ms of `reps` train steps on fresh batches, each from copy-in
+    to a synchronize, after one warm-up step."""
+    times = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        app.train_step(state, batch_to_device(next(loader), app.device))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times[1:]
+
+
+def _device_time_us(evt) -> float:
+    """Device time of a key_averages() row (`cuda_time_total` before
+    PyTorch 2.4)."""
+    if hasattr(evt, "device_time_total"):
+        return evt.device_time_total
+    return evt.cuda_time_total
+
+
+def trace_train_step(app: Stage1App, state, batch, top: int = 12) -> dict:
+    """torch.profiler over one train_step: busy share, kernel times and
+    the ROI crop backward's device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        app.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = _device_summary(prof, wall_us, top)
+    crop = [e for e in prof.key_averages() if e.key == CROP_BACKWARD_OP]
+    out["crop_backward_ms"] = sum(_device_time_us(e) for e in crop) / 1e3
+    out["crop_backward_calls"] = sum(e.count for e in crop)
+    return out
+
+
 def trace_one_batch(tester, loader, top: int = 12) -> dict:
     """torch.profiler over one run() batch: busy share and kernel times."""
     from torch.profiler import ProfilerActivity, profile
@@ -131,6 +216,12 @@ def trace_one_batch(tester, loader, top: int = 12) -> dict:
         tester.run(loader, test_batch_num=1)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return _device_summary(prof, wall_us, top)
+
+
+def _device_summary(prof, wall_us: float, top: int) -> dict:
+    """Busy share of the wall time (union of device intervals) and device
+    time by kernel name."""
     spans, by_name, counts = [], defaultdict(float), defaultdict(int)
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -172,6 +263,15 @@ def main() -> int:
         loop = loop_ms(tester, loader, dirs, REPS)
         tester.run(loader, test_batch_num=1)  # warm run() before tracing
         trace = trace_one_batch(tester, loader)
+        del tester
+
+        app = Stage1App(cfg, torch.device("cuda"))
+        state = app.init_state()
+        tb = batch_to_device(next(loader), app.device)
+        train_flops = train_phase_flops(app, state, tb)
+        train_ms = train_phase_ms(app, state, tb, REPS)
+        step_ms = train_step_ms(app, state, loader, REPS)
+        train_trace = trace_train_step(app, state, tb)
     name = torch.cuda.get_device_name(0)
     print(f"[profile] {name}, model 12 {cfg.img_H}x{cfg.img_W} hidden "
           f"{cfg.conv_hidden_num} z {cfg.z_num} batch {cfg.batch_size}")
@@ -191,9 +291,34 @@ def main() -> int:
     for row in trace["top"]:
         print(f"[trace]   {row['ms']:9.3f} ms  x{row['count']:<4d} "
               f"{row['name']}")
+    print(f"[train] model 1, batch {cfg.batch_size}, fast_gan_step="
+          f"{cfg.fast_gan_step}: device ms per phase: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in train_ms.items())
+          + f" | sum {sum(train_ms.values()):.3f}")
+    print("[train] GFLOP (achieved TFLOP/s): " + ", ".join(
+        f"{k} {v / 1e9:.1f} ({v / train_ms[k] / 1e9:.2f})"
+        for k, v in train_flops.items() if v)
+        + f" | step {sum(train_flops.values()) / 1e12:.3f} TFLOP")
+    print(f"[train] host ms per step (copy in, step, sync; {REPS} steps): "
+          f"median {statistics.median(step_ms):.2f}, all "
+          f"{[round(t, 2) for t in step_ms]}; "
+          f"{cfg.batch_size * 1e3 / statistics.median(step_ms):.2f} images/s")
+    print(f"[train trace] one train_step: wall {train_trace['wall_ms']:.2f} "
+          f"ms, device busy {train_trace['device_busy_ms']:.2f} ms (share "
+          f"{train_trace['device_busy_share']:.3f}), "
+          f"{train_trace['device_events']} device events; ROI crop backward "
+          f"({CROP_BACKWARD_OP}) {train_trace['crop_backward_ms']:.3f} ms in "
+          f"{train_trace['crop_backward_calls']} calls; pose_raster kernel "
+          f"us {train_trace['pose_raster_us']}")
+    for row in train_trace["top"]:
+        print(f"[train trace]   {row['ms']:9.3f} ms  x{row['count']:<4d} "
+              f"{row['name']}")
     print(json.dumps({"device": name, "batch_size": cfg.batch_size,
                       "stages_ms": stages, "stages_flops": flops,
-                      "loop_ms": loop, "trace": trace}))
+                      "loop_ms": loop, "trace": trace,
+                      "train_phase_ms": train_ms,
+                      "train_phase_flops": train_flops,
+                      "train_step_ms": step_ms, "train_trace": train_trace}))
     return 0
 
 

@@ -5,7 +5,9 @@ kernel stores in scalar heads and tails; every keypoint offset around a
 small image at radius 0-12; NaN and huge coordinates); one counted launch
 per call; no route from a CUDA tensor to the plain version; bad inputs
 refused before launch. And the model-12 tester on the card runs float32
-with PyTorch's TF32 flags on.
+with PyTorch's TF32 flags on. Training: one small-config train step on the
+card against the CPU (both D-step variants), the optimizers on identical
+gradients, and BatchNorm's running-statistic updates.
 
 Marked `cuda` and skipped without a card. On a machine with one (JAX is not
 needed there, hence no conftest):
@@ -22,6 +24,7 @@ from dpig_tpu_torch.config import Config
 from dpig_tpu_torch.data.synthetic import SyntheticLoader
 from dpig_tpu_torch.kernels import pose_raster
 from dpig_tpu_torch.ops import pose
+from dpig_tpu_torch.train.parity import recorded_train_step, step_errors
 
 pytestmark = pytest.mark.cuda
 
@@ -157,6 +160,122 @@ def test_tester_with_tf32_on_matches_the_cpu(card, tmp_path):
     # the CPU parity tests' bounds: 1e-4 on g_raw (2e-2 on [0,255])
     assert float((g.cpu() - g_c).abs().max()) <= 2e-2
     assert float((score.cpu() - score_c).abs().max()) <= 1e-4
+
+
+SMALL = dict(img_H=32, img_W=16, batch_size=4, conv_hidden_num=16, z_num=16)
+
+
+# The G step's losses and gradients come before any update. The card's D
+# step starts from the CPU's updated G (`recorded_train_step(g_updated=)`),
+# since the first Adam step is sign-like and would carry its noise into
+# the fakes. Readings on an NVIDIA H100 80GB HBM3 (700 W), fast_gan_step
+# False/True: G-step losses 6.9e-7, d_loss 1.4e-7/3.7e-7, Encoder 4.7e-5,
+# ID_AE 1.7e-6, Discriminator 3.1e-6/3.0e-6, d_stats 3.0e-7; with TF32 in
+# the backward passes (the control below): Encoder 5.7e-4, ID_AE 2.8e-4,
+# Discriminator 4.1e-4. The gradient limits sit between the two, at least
+# 3x from each reading.
+STEP_TOL = {"g_step_losses": 1e-5, "d_loss": 1e-5, "Encoder": 1.5e-4,
+            "ID_AE": 3e-5, "Discriminator": 3e-5, "d_stats": 1e-5}
+
+
+def _cpu_and_card_steps(card, tmp_path, step_fn=None, fast=False):
+    """One small-config train step of the same weights on the CPU and, with
+    PyTorch's TF32 flags on, on the card -> (errors, CPU record, card
+    record); the card's pose-kernel launches are checked to be one."""
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    batch = next(SyntheticLoader(4, 32, 16, seed=3))
+    cfgs = [Config(platform=p, model_dir=str(tmp_path), fast_gan_step=fast,
+                   **SMALL) for p in ("", "cpu")]
+    cpu = recorded_train_step(Stage1App(cfgs[1], torch.device("cpu")), batch)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        before = pose_raster.launches
+        gpu = recorded_train_step(Stage1App(cfgs[0], card), batch, step_fn,
+                                  g_updated=cpu.g_updated)
+        assert pose_raster.launches == before + 1
+    finally:
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+    return step_errors(cpu, gpu), cpu, gpu
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_train_step_on_the_card_matches_the_cpu(card, tmp_path, fast):
+    """The same weights and batch through one train step on the card (with
+    PyTorch's TF32 flags on: the step runs float32 whatever they say) and
+    on the CPU, within STEP_TOL; the same step count; the pose kernel
+    launched once."""
+    errs, cpu, gpu = _cpu_and_card_steps(card, tmp_path, fast=fast)
+    print(f"card vs CPU, fast_gan_step={fast}: {errs}")
+    assert all(errs[k] <= t for k, t in STEP_TOL.items()), errs
+    assert gpu.state.step == cpu.state.step == 1
+
+
+def test_a_tf32_backward_exceeds_the_step_tolerance(card, tmp_path):
+    """Control: the step with only its forwards under the float32 guard
+    (the backward passes and updates outside it) and TF32 on must exceed
+    STEP_TOL on the G and D gradients, so the test above can see TF32 in
+    the backward passes of both steps."""
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    errs, _, _ = _cpu_and_card_steps(card, tmp_path,
+                                     Stage1App.train_step.__wrapped__)
+    print(f"card (TF32 in the backward) vs CPU: {errs}")
+    assert errs["Encoder"] > STEP_TOL["Encoder"], errs
+    assert errs["ID_AE"] > STEP_TOL["ID_AE"], errs
+    assert errs["Discriminator"] > STEP_TOL["Discriminator"], errs
+
+
+@pytest.mark.parametrize("mode", ["dcgan", "wgan-gp", "wgan"])
+def test_optimizer_on_the_card_matches_the_cpu(card, mode):
+    """Three updates on identical gradients, the LR halving at 2: params
+    and moments within float32 rounding (rtol 1e-6)."""
+    from dpig_tpu_torch.train.state import make_optimizer
+    rng = np.random.default_rng(4)
+    shapes = {"a": (64, 3, 5, 5), "b": (17,), "c": (300, 7)}
+    init = {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in shapes.items()}
+    sides = []
+    for dev in (card, torch.device("cpu")):
+        params = {k: torch.from_numpy(v).to(dev) for k, v in init.items()}
+        sides.append((params, make_optimizer(mode, params, 1e-3, 2)))
+    for _ in range(3):
+        grads = [rng.standard_normal(s).astype(np.float32) * 1e-3
+                 for s in shapes.values()]
+        for params, opt in sides:
+            dev = next(iter(params.values())).device
+            opt.step([torch.from_numpy(g).to(dev) for g in grads])
+    (gp, gopt), (cp, copt) = sides
+    for k in shapes:
+        torch.testing.assert_close(gp[k].cpu(), cp[k], rtol=1e-6, atol=1e-7)
+        for m in copt.moments:
+            torch.testing.assert_close(gopt.moments[m][k].cpu(),
+                                       copt.moments[m][k], rtol=1e-6,
+                                       atol=1e-12)
+
+
+def test_batchnorm_stat_updates_on_the_card(card):
+    """Chained updating passes move the running statistics as on the CPU
+    (biased variance, momentum 0.9; atol 1e-6), a non-updating pass
+    leaves them alone."""
+    from dpig_tpu_torch.models.layers import BatchNorm
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy(rng.normal(m, s, (16, 128, 8, 4)).astype(
+        np.float32)) for m, s in ((0.5, 2), (-1, 1))]
+    bns = []
+    for dev in (card, torch.device("cpu")):
+        bn = BatchNorm(128).to(dev)
+        with torch.no_grad():
+            bn.weight.fill_(1.0)
+            bn.bias.zero_()
+        for x in xs:
+            bn(x.to(dev), train=True, update_stats=True)
+        bns.append(bn)
+    for name in ("running_mean", "running_var"):
+        torch.testing.assert_close(getattr(bns[0], name).cpu(),
+                                   getattr(bns[1], name), rtol=0, atol=1e-6)
+    before = bns[0].running_var.clone()
+    bns[0](xs[0].to(card), train=True)
+    assert torch.equal(bns[0].running_var, before)
 
 
 def test_kernel_on_a_side_stream(card):

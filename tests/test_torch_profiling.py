@@ -1,12 +1,15 @@
 """The port's profiler: its FLOP count per stage of the model-12
-transfer step, and its refusal to measure without a card."""
+transfer step, its phase-by-phase train step and its FLOPs, and its
+refusal to measure without a card."""
 import pytest
 import torch
 
 from dpig_tpu_torch.apps.common import batch_to_device
+from dpig_tpu_torch.apps.stage1_app import Stage1App
 from dpig_tpu_torch.apps.testers import ConditionalTransferTester
 from dpig_tpu_torch.config import Config
 from dpig_tpu_torch.data.synthetic import SyntheticLoader
+from dpig_tpu_torch.train import checkpoint as ckpt
 from dpig_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -31,6 +34,48 @@ def test_stage_flops_counts_the_discriminator_from_its_shapes(tmp_path):
         ch_in = ch
     macs += cfg.batch_size * h * w * ch_in
     assert flops["disc_score"] == 2 * macs
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_train_step_marks_each_phase_and_the_marks_change_nothing(tmp_path,
+                                                                  fast):
+    """train_step calls `mark` once per phase, in order, and computes bit
+    for bit on the CPU what it computes without a mark."""
+    cfg = Config(platform="cpu", model_dir=str(tmp_path), fast_gan_step=fast,
+                 **SMALL)
+    batch = next(SyntheticLoader(4, 32, 16, seed=1))
+    results = []
+    for marks in (None, []):
+        app = Stage1App(cfg, torch.device("cpu"))
+        state = app.init_state()
+        metrics = app.train_step(state, batch_to_device(batch, app.device),
+                                 None if marks is None else marks.append)
+        results.append((metrics, ckpt.state_tree(state)))
+    assert marks == list(profiling.TRAIN_PHASES)
+    (m0, s0), (m1, s1) = results
+    assert {k: float(v) for k, v in m0.items()} == {
+        k: float(v) for k, v in m1.items()}
+    assert s0["step"] == s1["step"] == 1
+    for key in ("g_params", "d_params", "d_stats"):
+        for net, tensors in s0[key].items():
+            for n, t in tensors.items():
+                assert torch.equal(t, s1[key][net][n]), (key, net, n)
+
+
+def test_train_phase_flops(tmp_path):
+    """Convs and matrix products per phase: none outside the passes, the
+    G backward about twice its forward (input and weight gradients; the
+    first conv of each net needs no input gradient), the re-forward the G
+    forward less the D's share."""
+    cfg = Config(platform="cpu", model_dir=str(tmp_path), **SMALL)
+    app = Stage1App(cfg, torch.device("cpu"))
+    jb = batch_to_device(next(SyntheticLoader(4, 32, 16, seed=1)), app.device)
+    flops = profiling.train_phase_flops(app, app.init_state(), jb)
+    assert list(flops) == list(profiling.TRAIN_PHASES)
+    assert flops["inputs"] == flops["g_update"] == flops["d_update"] == 0
+    assert 1.5 < flops["g_backward"] / flops["g_forward"] <= 2.0
+    assert 0 < flops["g_reforward"] < flops["g_forward"]
+    assert flops["d_forward_backward"] > 0
 
 
 def test_profiling_refuses_to_run_without_a_card():
