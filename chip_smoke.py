@@ -49,6 +49,29 @@ Phases, each printing one line; any failure exits non-zero:
               L1_GRAD_TOL, and TF32 in the backward passes alone must
               exceed it.
 
+  8. sampling  through the CLI entry point at full Market width, cold
+              start: model 11 (`--model=11 --sample_app=true
+              --pose_source=sampled`, SAMPLING_BATCHES batches of 16): the
+              8-directory tree with its G/{idx}_score{s}.png names and
+              pose_rcv dumps, finite outputs, per-batch ms, the pose kernel
+              launched exactly 3 times per batch (the decoded pose, the
+              `pose` and `pose_target` trees; no radius-0 preview) and the
+              ROI encoder called 0 times (its output is dead with
+              sample_app); model 13 (`--sample_fg=true`, FACTOR_BATCHES
+              batches): 1 launch per batch; interpolation
+              (`--interpolate_pose=true`, 8 steps): 1 launch;
+  9. sampling parity  the model-11 tester's weights on the card and on the
+              CPU, batch 2 at full width, the same noise, for each
+              pose_source: the mapper embeddings, the decoded rcv, g_raw
+              and the D score within SAMPLING_PARITY_TOL (float32, and
+              with the TF32 flags on), the decoded visibility and the pose
+              maps bit-equal, every decoded keypoint at least FLOOR_MARGIN
+              px from a floor boundary, and the CPU's decoded rcv rendered
+              by the card kernel bit-equal to the CPU's maps; the mappers
+              and the pose AE past their float32 guard with TF32 on must
+              exceed the embedding limit and, for a decoded pose, the rcv
+              limit.
+
 The line before the last is {"kernels": [...]}, with the pose kernel's
 launches on each path; the last line is {"ok": true, "device": {...}}.
 """
@@ -84,6 +107,20 @@ RASTER_SHAPES = {"Market": MARKET, "256x256": dict(b=16, h=256, w=256, k=18)}
 # least 5x from each reading (PERF.md, "Card vs CPU").
 PARITY_TOL = 1e-4
 TRAIN_STEPS, TRAIN_LOG_STEP = 6, 2
+SAMPLING_BATCHES, FACTOR_BATCHES, INTERPOLATION_STEPS = 4, 2, 8
+# Card vs CPU limits (max |diff|) of the model-11 sampling step, batch 2 at
+# full width, the same weights and noise. On an NVIDIA H100 80GB HBM3 at
+# 700 W this phase read, float32 and with the TF32 flags on alike: mapper
+# embeddings 2.4e-7, decoded rcv 1.2e-7 to 7.2e-7, g_raw 4.1e-6, score
+# 2.9e-6 to 2.4e-5; with the mappers and the pose AE past their float32
+# guard, TF32 on: embeddings 4.2e-4, rcv 2.7e-4 to 1.3e-3. The embedding
+# and rcv limits sit at least 14x from each reading; g_raw and the score
+# share the model-12 limit.
+SAMPLING_PARITY_TOL = {"embs": 1e-5, "rcv": 1e-5, "g_raw": PARITY_TOL,
+                       "score": PARITY_TOL}
+# A decoded keypoint this close to a floor boundary could render at
+# another pixel on the card than on the CPU (ops.pose.floor_margin).
+FLOOR_MARGIN = 1e-3
 # Card vs CPU limits for one train step, batch 2 at full width (keys of
 # `train.parity.step_errors`). The G-step losses and the G gradients come
 # before any update; the card's D step starts from the CPU's updated G
@@ -382,6 +419,218 @@ def phase_parity(card_tester, model_dir):
                              "check cannot tell TF32 from float32")
 
 
+def _run_cli(argv):
+    """`dpig_tpu_torch.main.main(argv)` with the pose kernel's launch count
+    set to 0 just before -> (launches, wall s)."""
+    from dpig_tpu_torch import main as port_main
+    from dpig_tpu_torch.kernels import pose_raster
+    pose_raster.launches = 0
+    t0 = time.perf_counter()
+    port_main.main(argv)
+    torch.cuda.synchronize()
+    return pose_raster.launches, time.perf_counter() - t0
+
+
+def phase_sampling(model_dir):
+    """Models 11 and 13 and interpolation through the CLI entry point at
+    full Market width, cold start -> (the model-11 tester, launches per
+    path)."""
+    from dpig_tpu_torch.apps.testers import FullSamplingTester
+    from dpig_tpu_torch.models.encoders import RoiEncoderFgBg
+    common = ["--is_train=false", "--synthetic_data=true",
+              f"--model_dir={model_dir}"]
+    step = FullSamplingTester.sample_step
+    starts, outputs, seen = [], [], []
+    encoder_calls = [0]
+
+    def recorded_step(self, batch, noise, pose_source="real"):
+        starts.append(time.perf_counter())
+        out = step(self, batch, noise, pose_source)
+        outputs.append(out)
+        seen.append(self)
+        return out
+
+    def count_encoder(module, args, out):
+        if isinstance(module, RoiEncoderFgBg):
+            encoder_calls[0] += 1
+
+    FullSamplingTester.sample_step = recorded_step
+    hook = torch.nn.modules.module.register_module_forward_hook(count_encoder)
+    try:
+        launches, wall = _run_cli(
+            ["--model=11", "--sample_app=true", "--pose_source=sampled",
+             f"--test_batch_num={SAMPLING_BATCHES}", *common])
+    finally:
+        hook.remove()
+        FullSamplingTester.sample_step = step
+    end = time.perf_counter()
+    tester, cfg = seen[0], seen[0].cfg
+    if (cfg.img_H, cfg.img_W, cfg.conv_hidden_num, cfg.z_num, cfg.batch_size,
+            tester.fg_dim) != (128, 64, 128, 64, 16, 224):
+        raise AssertionError("Config() defaults are not the Market model")
+    out_root = os.path.join(model_dir, f"test_result_SampleAppTruePose-"
+                            f"sampled_{SAMPLING_BATCHES}x{cfg.batch_size}")
+    counts = {d: len(os.listdir(os.path.join(out_root, d)))
+              for d in sorted(os.listdir(out_root))}
+    g_names = sorted(os.listdir(os.path.join(out_root, "G")))
+    dumps = sorted(f for f in os.listdir(os.path.join(out_root, "G_pose"))
+                   if f.endswith(".npy"))
+    finite = all(bool(torch.isfinite(t).all()) for o in outputs for t in o)
+    batch_ms = [(t1 - t0) * 1e3 for t0, t1 in zip(starts, starts[1:] + [end])]
+    n_img = SAMPLING_BATCHES * cfg.batch_size
+    print(f"[sampling] model 11 (CLI, sample_app, pose_source=sampled) "
+          f"{cfg.img_H}x{cfg.img_W} hidden {cfg.conv_hidden_num} z "
+          f"{cfg.z_num} batch {cfg.batch_size}: {SAMPLING_BATCHES} batches "
+          f"in {wall:.1f} s, pose kernel launches {launches}, ROI encoder "
+          f"calls {encoder_calls[0]}, files {counts}, G names "
+          f"{g_names[0]} ..., rcv dumps {dumps}, finite={finite}; per-batch "
+          f"ms after the first {[round(x, 2) for x in batch_ms[1:]]} (first "
+          f"{batch_ms[0]:.1f})", flush=True)
+    if launches != 3 * SAMPLING_BATCHES:
+        raise AssertionError(f"model 11: pose kernel launched {launches} "
+                             f"times, expected {3 * SAMPLING_BATCHES}")
+    if encoder_calls[0] != 0:
+        raise AssertionError(f"model 11 with sample_app ran the ROI encoder "
+                             f"{encoder_calls[0]} times")
+    want = {d: n_img for d in ("mask", "mask_target", "pose", "pose_target",
+                               "x", "x_target", "G")}
+    want["G_pose"] = n_img + min(SAMPLING_BATCHES, 4)
+    if counts != want or len(dumps) != min(SAMPLING_BATCHES, 4) or not all(
+            "_score" in n for n in g_names):
+        raise AssertionError(f"model 11 tree {counts}, dumps {dumps}")
+    if not finite or len(outputs) != SAMPLING_BATCHES:
+        raise AssertionError("model 11: non-finite outputs or a step short")
+
+    factor, wall13 = _run_cli(["--model=13", "--sample_fg=true",
+                               f"--test_batch_num={FACTOR_BATCHES}", *common])
+    root13 = os.path.join(model_dir, "test_result_ROI7_SampleFgTrueSampleBg"
+                          f"FalseSamplePoseFalse_pretrain_{FACTOR_BATCHES}x"
+                          f"{cfg.batch_size}")
+    counts13 = {d: len(os.listdir(os.path.join(root13, d)))
+                for d in sorted(os.listdir(root13))}
+    interp, wall_i = _run_cli(["--model=11", "--interpolate_pose=true",
+                               *common])
+    png = os.path.join(model_dir, "test_result_interpolate",
+                       "interpolation.png")
+    print(f"[sampling] model 13 (--sample_fg=true): {FACTOR_BATCHES} batches "
+          f"in {wall13:.1f} s, pose kernel launches {factor}, files "
+          f"{counts13}; interpolation (--interpolate_pose=true, "
+          f"{INTERPOLATION_STEPS} steps) in {wall_i:.1f} s: pose kernel "
+          f"launches {interp}, {png} written: {os.path.exists(png)}",
+          flush=True)
+    if factor != FACTOR_BATCHES or counts13 != {
+            d: FACTOR_BATCHES * cfg.batch_size for d in ("G", "pose", "x")}:
+        raise AssertionError(f"model 13: {factor} launches, tree {counts13}")
+    if interp != 1 or not os.path.exists(png):
+        raise AssertionError(f"interpolation: {interp} launches")
+    return tester, {"model 11 sampling": launches,
+                    "model 13 factor sampling": factor,
+                    "interpolation": interp}
+
+
+def _sampling_raw(tester, batch, noise, pose_source, guarded=True):
+    """(mapper embeddings, rcv, pose maps, g_raw, score) of the model-11
+    step with sample_app, copied to the CPU. `guarded=False` calls the
+    mappers and the pose AE straight, past their float32 guard, so the
+    caller's TF32 flags reach cuBLAS."""
+    from dpig_tpu_torch.apps.common import batch_to_device
+    from dpig_tpu_torch.models.pose_ae import assemble_pose_rcv
+    from dpig_tpu_torch.ops.pose import pose_rcv_normalize, render_pose_maps
+    cfg, m = tester.cfg, tester.mappers
+    with torch.inference_mode():
+        jb = batch_to_device(batch, tester.device)
+        noise = {k: v.to(tester.device) for k, v in noise.items()}
+        if guarded:
+            embs = torch.cat([tester._map("Gaussian_FC_Fg", noise["fg"]),
+                              tester._map("Gaussian_FC_Bg", noise["bg"])], -1)
+            maps, rcv = tester._pose_maps(jb, noise["pose"], pose_source)
+        else:
+            embs = torch.cat([m["Gaussian_FC_Fg"](noise["fg"]),
+                              m["Gaussian_FC_Bg"](noise["bg"])], -1)
+            if pose_source == "real":
+                maps, rcv = tester._pose_maps(jb, noise["pose"], "real")
+            else:
+                if pose_source == "sampled":
+                    z = m["PoseGaussian"](noise["pose"])
+                else:
+                    rcv_norm = pose_rcv_normalize(jb["pose_rcv"], cfg.img_H,
+                                                  cfg.img_W)
+                    flat = rcv_norm.reshape(rcv_norm.shape[0], -1)
+                    z = tester.pose_ae.encoder(flat)
+                rcv = assemble_pose_rcv(*tester.pose_ae.decoder(z))
+                maps = render_pose_maps(rcv, cfg.img_H, cfg.img_W,
+                                        cfg.keypoint_num, 4, True)
+        g_raw = tester._generate(embs, maps)
+        return {"embs": embs.cpu(), "rcv": rcv.cpu(), "maps": maps.cpu(),
+                "g_raw": g_raw.cpu(), "score": tester._disc_score(g_raw).cpu()}
+
+
+def phase_sampling_parity(card_tester, model_dir):
+    from dpig_tpu_torch.apps.testers import FullSamplingTester
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data.synthetic import SyntheticLoader
+    from dpig_tpu_torch.ops.pose import floor_margin, render_pose_maps
+    cfg = card_tester.cfg
+    if not cfg.sample_app:
+        raise AssertionError("the sampling parity needs the sample_app tester")
+    cpu_tester = FullSamplingTester(
+        Config(platform="cpu", sample_app=True, batch_size=2,
+               model_dir=model_dir), params=card_tester.cpu_state())
+    batch = next(SyntheticLoader(2, 128, 64, seed=98))
+    noise = cpu_tester.draw_noise(torch.Generator().manual_seed(0), 2)
+    failures, lines = [], []
+    for source in ("real", "reconstructed", "sampled"):
+        ref = _sampling_raw(cpu_tester, batch, noise, source)
+        runs = {"float32": (False, True), "TF32 flags on": (True, True),
+                "control: mappers and pose AE past the guard, TF32": (True,
+                                                                      False)}
+        errs = {}
+        for label, (tf32, guarded) in runs.items():
+            _set_tf32(tf32)
+            try:
+                got = _sampling_raw(card_tester, batch, noise, source, guarded)
+            finally:
+                _set_tf32(False)
+            errs[label] = {k: float((got[k] - ref[k]).abs().max())
+                           for k in SAMPLING_PARITY_TOL}
+            if guarded:
+                if not torch.equal(got["maps"], ref["maps"]):
+                    failures.append(f"{source}, {label}: pose maps differ")
+                if not torch.equal(got["rcv"][..., 2], ref["rcv"][..., 2]):
+                    failures.append(f"{source}, {label}: decoded vis differ")
+                failures += [f"{source}, {label}: {k} {v:.3e}"
+                             for k, v in errs[label].items()
+                             if v > SAMPLING_PARITY_TOL[k]]
+            else:
+                seen = ("embs",) if source == "real" else ("embs", "rcv")
+                failures += [f"{source}: TF32 past the guard passes the {k} "
+                             f"limit" for k in seen
+                             if errs[label][k] <= SAMPLING_PARITY_TOL[k]]
+        note = ""
+        if source != "real":
+            margin = floor_margin(ref["rcv"], 128, 64)
+            kernel = render_pose_maps(ref["rcv"].cuda(), 128, 64, 18, 4,
+                                      True).cpu()
+            same = bool(torch.equal(kernel, ref["maps"]))
+            note = (f"; floor margin {margin:.4f} px, card kernel on the "
+                    f"CPU's rcv bit-equal: {same}")
+            if margin < FLOOR_MARGIN or not same:
+                failures.append(f"{source}: floor margin {margin} or kernel "
+                                f"on the CPU's rcv differs")
+        lines.append(f"[sampling parity] {source}: " + "; ".join(
+            f"{label} " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+            for label, e in errs.items()) + note)
+    for line in lines:
+        print(line, flush=True)
+    print(f"[sampling parity] card vs CPU, model 11 with sample_app, batch 2 "
+          f"at full width (max |diff|; max|embs| "
+          f"{float(ref['embs'].abs().max()):.3f}); tolerances "
+          f"{SAMPLING_PARITY_TOL}; pose maps and decoded vis bit-equal",
+          flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def _expected_train_launches(cfg) -> int:
     """Pose-kernel launches of a Trainer run from step 0 to cfg.max_step:
     one per train step, one for the fixed pose preview, one per preview
@@ -608,11 +857,15 @@ def main() -> int:
         tester, model12 = phase_slice(os.path.join(tmp, "m12"))
         phase_parity(tester, os.path.join(tmp, "m12_cpu"))
         del tester
+        tester, sampling = phase_sampling(os.path.join(tmp, "m11"))
+        phase_sampling_parity(tester, os.path.join(tmp, "m11_cpu"))
+        del tester
         train = phase_train(os.path.join(tmp, "m1"))
         phase_train_parity(os.path.join(tmp, "m1_parity"))
-    kernel["launches"] = model12 + train
-    kernel["launches_by_path"] = {"model 12 transfer": model12,
-                                  "model 1 training": train}
+    by_path = {"model 12 transfer": model12, **sampling,
+               "model 1 training": train}
+    kernel["launches"] = sum(by_path.values())
+    kernel["launches_by_path"] = by_path
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [kernel]}))

@@ -62,7 +62,7 @@ class Stage1App:
         if cfg.img_H >= 256:
             raise NotImplementedError(
                 "the 256x256 family (models 101-104/1001/1002) is not ported "
-                "to dpig_tpu_torch yet")
+                "to dpig_tpu_torch yet (ROADMAP queue item 4)")
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 f"--compute_dtype={cfg.compute_dtype}: dpig_tpu_torch runs "

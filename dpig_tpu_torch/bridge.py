@@ -1,10 +1,11 @@
 """flax param tree -> the port's module state.
 
-`params_from_flax(tree)` takes the JAX package's params for the model-12
-path as nested dicts of numpy arrays (any array type numpy can read),
-with exactly the sub-trees `Encoder`, `ID_AE`, `Discriminator` and
-`Discriminator_stats`, and returns a dict with the same four names, each a
-flat state dict keyed like the port's `state_dict()`:
+`params_from_flax(tree, subtrees)` takes the JAX package's params as nested
+dicts of numpy arrays (any array type numpy can read) and returns, for
+each name in `subtrees`, a flat state dict keyed like the port's
+`state_dict()`. Each tester declares its `SUBTREES` (`apps/testers.py`);
+the default is the Stage-I nets, `Encoder`, `ID_AE`, `Discriminator` and
+`Discriminator_stats`. Leaves map as:
 
   * conv `kernel` HWIO [kh,kw,in,out] -> `weight` OIHW [out,in,kh,kw];
   * Dense `kernel` [in,out]          -> `weight` [out,in];
@@ -14,19 +15,23 @@ flat state dict keyed like the port's `state_dict()`:
   * BatchNorm stats `mean`/`var`     -> `running_mean`/`running_var`.
 
 Submodule paths carry over unchanged (`fg_tower/ConvBlockTower_0/Conv_3`
--> `fg_tower.ConvBlockTower_0.Conv_3`), since the port's modules use the
-flax names. A missing or extra sub-tree, or a leaf name not listed above,
-raises here; a missing or extra module key raises in `load_state`.
+-> `fg_tower.ConvBlockTower_0.Conv_3`; the nested `PoseAE/G_Pose_Encoder`
+-> `G_Pose_Encoder.` inside `PoseAE`), since the port's modules use the
+flax names. A missing sub-tree, or a leaf name not listed above, raises
+here; a sub-tree not asked for is left out (a JAX cold start also holds
+`Gaussian_FC`, DeepFashion's single mapper); a missing or extra module key
+raises where the state is loaded (`load_state_dict(strict=True)`).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-SUBTREES = ("Encoder", "ID_AE", "Discriminator", "Discriminator_stats")
+STAGE1_SUBTREES = ("Encoder", "ID_AE", "Discriminator",
+                   "Discriminator_stats")
 
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
                  "stem_kernel": "stem_kernel", "stem_bias": "stem_bias"}
@@ -57,14 +62,14 @@ def _flatten(tree: Mapping, prefix: str, stats: bool,
             raise KeyError(f"unknown flax leaf {prefix}{name}")
 
 
-def params_from_flax(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
-    got = set(tree)
-    if got != set(SUBTREES):
-        raise KeyError(f"params_from_flax needs exactly {list(SUBTREES)}; "
-                       f"missing {sorted(set(SUBTREES) - got)}, "
-                       f"extra {sorted(got - set(SUBTREES))}")
+def params_from_flax(tree: Mapping, subtrees: Sequence[str] = STAGE1_SUBTREES
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
+    missing = sorted(set(subtrees) - set(tree))
+    if missing:
+        raise KeyError(f"params_from_flax needs {list(subtrees)}; missing "
+                       f"{missing}")
     state = {}
-    for name in SUBTREES:
+    for name in subtrees:
         flat: Dict[str, torch.Tensor] = {}
         _flatten(tree[name], "", name.endswith("_stats"), flat)
         state[name] = flat

@@ -4,11 +4,16 @@
         --max_step=1000 --log_step=50 --model_dir=<dir>
     python -m dpig_tpu_torch.main --model=12 --is_train=false \
         --synthetic_data=true --test_batch_num=4 --model_dir=<dir>
+    python -m dpig_tpu_torch.main --model=11 --sample_app=true \
+        --pose_source=sampled --synthetic_data=true --test_batch_num=4 \
+        --model_dir=<dir>
 
-Runs Stage-I training (model 1) and model-12 pose transfer on the card
-(`--platform=cpu` for the CPU). As in the JAX package, `--model` alone
-picks training (1-4, 101-104) or testing. Every other `--model`, and every
-option whose path is not ported yet, raises NotImplementedError.
+Runs Stage-I training (model 1), model-11 sampling, model-12 pose
+transfer, model-13 factor sampling and the `--interpolate_*` factor
+interpolation on the card (`--platform=cpu` for the CPU). As in the JAX
+package, `--model` alone picks training (1-4, 101-104) or testing (11, 12,
+13, 1001, 1002). Every model and option whose path is not ported yet
+raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -58,20 +63,35 @@ def train_model(cfg: Config):
 
 
 def test_model(cfg: Config) -> str:
+    """The test dispatch of the JAX package's main.py:118-156; returns the
+    output directory."""
     from .apps import testers
-    if cfg.model != 12:
-        raise NotImplementedError(
-            f"--model={cfg.model}: dpig_tpu_torch ports model 12 (pose "
-            "transfer) only of the test models so far")
     unported = [f for f in ("test_one_by_one", "inverse_fg", "inverse_bg",
-                            "inverse_pose", "interpolate_fg",
-                            "interpolate_fg_up", "interpolate_fg_down",
-                            "interpolate_bg", "interpolate_pose")
-                if getattr(cfg, f)]
+                            "inverse_pose") if getattr(cfg, f)]
     if unported:
         raise NotImplementedError(f"--{unported[0]} is not ported to "
                                   "dpig_tpu_torch yet")
-    return testers.ConditionalTransferTester(cfg).run(make_loader(cfg))
+    if cfg.model in (1001, 1002):
+        raise NotImplementedError(
+            f"--model={cfg.model}: the 256x256 family is not ported to "
+            "dpig_tpu_torch yet (ROADMAP queue item 4)")
+    if cfg.model not in (11, 12, 13):
+        raise ValueError(f"unknown test model {cfg.model}")
+    loader = make_loader(cfg)
+    if (cfg.interpolate_fg or cfg.interpolate_fg_up or cfg.interpolate_fg_down
+            or cfg.interpolate_bg or cfg.interpolate_pose):
+        return testers.InterpolationTester(cfg).run(loader)
+    if cfg.model == 11:
+        # --sample_pose maps to the reference behavior (tester.py:93-95):
+        # True decodes the AE code of the real pose ('reconstructed');
+        # --pose_source overrides (incl. 'sampled', the paper's sampler).
+        pose_source = cfg.pose_source or (
+            "reconstructed" if cfg.sample_pose else "real")
+        return testers.FullSamplingTester(cfg).run(loader,
+                                                   pose_source=pose_source)
+    if cfg.model == 12:
+        return testers.ConditionalTransferTester(cfg).run(loader)
+    return testers.FactorSamplingTester(cfg).run(loader)
 
 
 def main(argv=None) -> None:

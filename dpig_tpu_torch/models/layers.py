@@ -1,4 +1,4 @@
-"""Shared building blocks (port of `dpig_tpu/models/layers.py:18-63`).
+"""Shared building blocks (port of `dpig_tpu/models/layers.py:18-88`).
 
 Modules take and return NCHW tensors; the public model functions convert
 from the JAX package's NHWC. Submodules carry the flax names (`Conv_0`,
@@ -12,7 +12,7 @@ wgan_gp.py:411-413), zero biases; drawn from an explicit torch.Generator.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -186,4 +186,35 @@ class ConvBlockTower(nn.Module):
                 x = act(next(convs)(x))
         if self.collect_skips:
             return x, skips
+        return x
+
+
+class FCResTrunk(nn.Module):
+    """FC residual trunk (port of `dpig_tpu/models/layers.py:66-88`;
+    models.py:479-483 pattern): `Dense_0` in_dim -> hidden, then
+    `repeat_num` blocks of two hidden -> hidden layers with a residual add
+    (`Dense_1` ... `Dense_{2R}`, flax's automatic names).
+    `first_activation=None` leaves `Dense_0`'s output as it is."""
+
+    def __init__(self, in_dim: int, repeat_num: int, hidden_num: int,
+                 activation: Callable = F.relu,
+                 first_activation: Optional[Callable] = None):
+        super().__init__()
+        self.repeat_num = repeat_num
+        self.activation = activation
+        self.first_activation = first_activation
+        self.Dense_0 = Dense(in_dim, hidden_num)
+        for i in range(1, 2 * repeat_num + 1):
+            self.add_module(f"Dense_{i}", Dense(hidden_num, hidden_num))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        act = self.activation
+        x = self.Dense_0(x)
+        if self.first_activation is not None:
+            x = self.first_activation(x)
+        for r in range(self.repeat_num):
+            res = x
+            x = act(getattr(self, f"Dense_{2 * r + 1}")(x))
+            x = act(getattr(self, f"Dense_{2 * r + 2}")(x))
+            x = res + x
         return x

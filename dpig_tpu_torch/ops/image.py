@@ -1,10 +1,13 @@
-"""Image normalization / resizing (port of `dpig_tpu/ops/image.py:12-66`).
+"""Image normalization / resizing (port of `dpig_tpu/ops/image.py:12-66`)
+and the embedding slerp (`:93-106`, numpy on the host).
 
 Reference semantics: utils.py:102-107 (process/unprocess), utils.py:88-89
-(denorm+clip), utils.py:70-72 (nearest-neighbor upscale). NHWC tensors.
+(denorm+clip), utils.py:70-72 (nearest-neighbor upscale), utils.py:91-97
+(slerp). NHWC tensors.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -33,3 +36,18 @@ def upscale_nn(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     b, h, w, c = x.shape
     x = x[:, :, None, :, None, :].expand(b, h, scale, w, scale, c)
     return x.reshape(b, h * scale, w * scale, c)
+
+
+def slerp(val, low, high):
+    """Spherical interpolation (reference utils.py:91-97). Works on 1-D
+    embedding vectors; falls back to lerp for (near-)parallel inputs."""
+    low = np.asarray(low)
+    high = np.asarray(high)
+    omega = np.arccos(np.clip(
+        np.dot(low / np.linalg.norm(low), high / np.linalg.norm(high)),
+        -1, 1))
+    so = np.sin(omega)
+    if so == 0:
+        return (1.0 - val) * low + val * high
+    return (np.sin((1.0 - val) * omega) / so * low
+            + np.sin(val * omega) / so * high)

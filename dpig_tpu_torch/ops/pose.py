@@ -91,6 +91,23 @@ def render_pose_maps(rcv: torch.Tensor, img_h: int, img_w: int,
                                   normalized)
 
 
+def floor_margin(rcv: torch.Tensor, img_h: int, img_w: int) -> float:
+    """Smallest distance, in pixels, from a visible normalized keypoint's
+    denormalized row or column to a value where its floor changes.
+    `render_pose_maps(..., normalized=True)` clips to [0, size-1] and
+    floors, so that happens at the integers 1 .. size-1, and a whole disc
+    moves there; two devices whose decoded rcv differ by ~1e-6 give the
+    same maps where this margin is wider than that."""
+    rcv = rcv.reshape(rcv.shape[0], -1, 3).to(torch.float32)
+    margins = []
+    for axis, size in ((0, img_h), (1, img_w)):
+        p = (rcv[..., axis] + 1.0) / 2.0 * size  # pose_rcv_denormalize
+        d = (p - torch.clamp(torch.round(p), 1.0, size - 1.0)).abs()
+        margins.append(torch.where(rcv[..., 2] > 0.0, d,
+                                   torch.full_like(d, float("inf"))))
+    return float(torch.stack(margins).min())
+
+
 def render_pose_points(rcv: torch.Tensor, img_h: int, img_w: int,
                        keypoint_num: int = 18,
                        normalized: bool = True) -> torch.Tensor:

@@ -1,13 +1,14 @@
-"""Where a model-12 batch and a model-1 train step spend their time on the
-card (the port's counterpart of `dpig_tpu/utils/profiling.py`, for the
-ported paths).
+"""Where a model-12 batch, a model-11 sampling batch and a model-1 train
+step spend their time on the card (the port's counterpart of
+`dpig_tpu/utils/profiling.py`, for the ported paths).
 
     python -m dpig_tpu_torch.utils.profiling
 
-Runs `ConditionalTransferTester` and `Stage1App.train_step` on the card at
-full Market width (the `Config()` defaults: 128x64, hidden 128, z 64,
-batch 16, Adam at 8e-5, the re-forward D step), cold start, float32, and
-prints five breakdowns:
+Runs `ConditionalTransferTester`, `FullSamplingTester` (sample_app,
+pose_source 'sampled', as `chip_smoke.py` runs it) and
+`Stage1App.train_step` on the card at full Market width (the `Config()`
+defaults: 128x64, hidden 128, z 64, batch 16, Adam at 8e-5, the re-forward
+D step), cold start, float32, and prints eight breakdowns:
 
   stages  device time of each layer of `transfer_step` (CUDA events,
           median over REPS after a warm-up): ROI encoder (stem, crop,
@@ -18,6 +19,16 @@ prints five breakdowns:
           in, transfer_step, source pose map, copy out, PNG writes, SSIM;
   trace   torch.profiler over one `run()` batch: the device's busy share of
           the batch's wall time and device time by kernel (top 12);
+  sampling  device time of each stage of the model-11 step (CUDA events,
+          median over REPS after a warm-up): encode (only when its output
+          is live, not with sample_app), mappers (FG, BG and pose
+          Gaussian mappers), pose_ae (the pose decoder), pose_raster,
+          generate, disc_score;
+  sampling loop  host ms per `run()` batch: the synchronized sample_step
+          and the rest (copy in, noise, the `pose` / `pose_target`
+          renders, copy out, PNG and rcv writes);
+  sampling trace  torch.profiler over one model-11 `run()` batch: busy
+          share and top kernels;
   train   device time of each phase of a train step (CUDA events at
           `train_step`'s phase marks, median over REPS after a warm-up):
           G forward, G backward, G update, G re-forward, D forward and
@@ -43,13 +54,18 @@ import torch
 
 from ..apps.common import batch_to_device, pose_maps_from_batch
 from ..apps.stage1_app import TRAIN_PHASES, Stage1App
-from ..apps.testers import ConditionalTransferTester, _save_batch_pngs
+from ..apps.testers import (ConditionalTransferTester, FullSamplingTester,
+                             _save_batch_pngs)
 from ..config import Config
 from ..data.synthetic import SyntheticLoader
 from ..eval.metrics import ssim_images
+from ..ops.pose import render_pose_maps
 from .viz import pose_to_gray
 
 STAGES = ("encode", "pose_raster", "generate", "disc_score")
+SAMPLING_STAGES = ("encode", "mappers", "pose_ae", "pose_raster", "generate",
+                   "disc_score")
+SAMPLING_SOURCE = "sampled"
 LOOP = ("copy_in", "transfer_step", "source_pose", "copy_out", "png_write",
         "ssim")
 CROP_BACKWARD_OP = "aten::_index_put_impl_"
@@ -94,6 +110,85 @@ def stage_ms(tester, jb, reps: int) -> dict:
         rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(len(STAGES))])
     return {s: statistics.median(r[i] for r in rows[1:])
             for i, s in enumerate(STAGES)}
+
+
+@torch.inference_mode()
+def sampling_stages(tester: FullSamplingTester, jb, noise, mark):
+    """FullSamplingTester.sample_step (pose_source 'sampled') in stages,
+    `mark(stage)` after each of SAMPLING_STAGES is enqueued -> (g_raw,
+    score). The encoder runs only without sample_app, as in the step."""
+    cfg, fg_dim = tester.cfg, tester.fg_dim
+    if cfg.sample_app:
+        embs = None
+    else:
+        embs = tester._encode_app(jb)
+    mark("encode")
+    if embs is None:
+        fg = tester._map("Gaussian_FC_Fg", noise["fg"])
+        bg = tester._map("Gaussian_FC_Bg", noise["bg"])
+    else:
+        fg, bg = embs[:, :fg_dim], embs[:, fg_dim:]
+    if cfg.one_app_per_batch:
+        fg = fg[:1].expand(fg.shape[0], -1)
+    embs = torch.cat([fg, bg], -1)
+    z = tester._pose_z(jb, noise["pose"], SAMPLING_SOURCE)
+    mark("mappers")
+    rcv = tester.pose_ae.decode_rcv(z)
+    mark("pose_ae")
+    pose = render_pose_maps(rcv, cfg.img_H, cfg.img_W, cfg.keypoint_num,
+                            radius=4, normalized=True)
+    mark("pose_raster")
+    g_raw = tester._generate(embs, pose)
+    mark("generate")
+    score = tester._disc_score(g_raw)
+    mark("disc_score")
+    return g_raw, score
+
+
+def sampling_stage_ms(tester: FullSamplingTester, jb, noise,
+                      reps: int) -> dict:
+    """Median device ms of each stage of the model-11 step (CUDA events)."""
+    rows = []
+    for _ in range(reps + 1):  # the first is a warm-up
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+
+        def mark(_stage):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+        sampling_stages(tester, jb, noise, mark)
+        torch.cuda.synchronize()
+        rows.append([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+    return {s: statistics.median(r[i] for r in rows[1:])
+            for i, s in enumerate(SAMPLING_STAGES)}
+
+
+def sampling_loop_ms(tester: FullSamplingTester, loader, reps: int) -> dict:
+    """Median host ms per model-11 run() batch: the sample_step (then
+    synchronized) and the rest of the batch, over `reps` batches after
+    the first."""
+    step, marks = tester.sample_step, []
+
+    def timed_step(*args):
+        marks.append(time.perf_counter())
+        out = step(*args)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return out
+
+    tester.sample_step = timed_step
+    try:
+        tester.run(loader, test_batch_num=reps + 1,
+                   pose_source=SAMPLING_SOURCE)
+    finally:
+        del tester.sample_step
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    rows = [(marks[i + 1] - marks[i], marks[i + 2] - marks[i + 1])
+            for i in range(2, len(marks) - 1, 2)]
+    return {"sample_step": statistics.median(r[0] for r in rows) * 1e3,
+            "rest": statistics.median(r[1] for r in rows) * 1e3}
 
 
 def loop_ms(tester, loader, dirs, reps: int) -> dict:
@@ -206,14 +301,14 @@ def trace_train_step(app: Stage1App, state, batch, top: int = 12) -> dict:
     return out
 
 
-def trace_one_batch(tester, loader, top: int = 12) -> dict:
+def trace_one_batch(tester, loader, top: int = 12, **run_kwargs) -> dict:
     """torch.profiler over one run() batch: busy share and kernel times."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tester.run(loader, test_batch_num=1)
+        tester.run(loader, test_batch_num=1, **run_kwargs)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     return _device_summary(prof, wall_us, top)
@@ -265,6 +360,17 @@ def main() -> int:
         trace = trace_one_batch(tester, loader)
         del tester
 
+        sampler = FullSamplingTester(Config(platform="", model_dir=tmp,
+                                            sample_app=True))
+        noise = sampler.draw_noise(torch.Generator().manual_seed(0),
+                                   cfg.batch_size)
+        s_stages = sampling_stage_ms(sampler, jb, noise, REPS)
+        s_loop = sampling_loop_ms(sampler, loader, REPS)
+        sampler.run(loader, test_batch_num=1, pose_source=SAMPLING_SOURCE)
+        s_trace = trace_one_batch(sampler, loader,
+                                  pose_source=SAMPLING_SOURCE)
+        del sampler
+
         app = Stage1App(cfg, torch.device("cuda"))
         state = app.init_state()
         tb = batch_to_device(next(loader), app.device)
@@ -291,6 +397,21 @@ def main() -> int:
     for row in trace["top"]:
         print(f"[trace]   {row['ms']:9.3f} ms  x{row['count']:<4d} "
               f"{row['name']}")
+    print(f"[sampling] model 11, sample_app, pose_source {SAMPLING_SOURCE}, "
+          f"batch {cfg.batch_size}: device ms: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in s_stages.items())
+          + f" | sum {sum(s_stages.values()):.3f}")
+    print(f"[sampling loop] host ms per run() batch (median of {REPS}): "
+          f"sample_step {s_loop['sample_step']:.2f}, rest {s_loop['rest']:.2f}"
+          f" | sum {sum(s_loop.values()):.2f}")
+    print(f"[sampling trace] one run() batch: wall {s_trace['wall_ms']:.2f} "
+          f"ms, device busy {s_trace['device_busy_ms']:.2f} ms (share "
+          f"{s_trace['device_busy_share']:.3f}), "
+          f"{s_trace['device_events']} device events; pose_raster kernel "
+          f"us {s_trace['pose_raster_us']}")
+    for row in s_trace["top"]:
+        print(f"[sampling trace]   {row['ms']:9.3f} ms  x{row['count']:<4d} "
+              f"{row['name']}")
     print(f"[train] model 1, batch {cfg.batch_size}, fast_gan_step="
           f"{cfg.fast_gan_step}: device ms per phase: " + ", ".join(
               f"{k} {v:.3f}" for k, v in train_ms.items())
@@ -316,6 +437,8 @@ def main() -> int:
     print(json.dumps({"device": name, "batch_size": cfg.batch_size,
                       "stages_ms": stages, "stages_flops": flops,
                       "loop_ms": loop, "trace": trace,
+                      "sampling_stages_ms": s_stages,
+                      "sampling_loop_ms": s_loop, "sampling_trace": s_trace,
                       "train_phase_ms": train_ms,
                       "train_phase_flops": train_flops,
                       "train_step_ms": step_ms, "train_trace": train_trace}))

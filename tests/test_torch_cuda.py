@@ -19,7 +19,10 @@ import pytest
 import torch
 
 from dpig_tpu_torch.apps.common import batch_to_device
-from dpig_tpu_torch.apps.testers import ConditionalTransferTester
+from dpig_tpu_torch.apps.testers import (ConditionalTransferTester,
+                                         FactorSamplingTester,
+                                         FullSamplingTester,
+                                         InterpolationTester)
 from dpig_tpu_torch.config import Config
 from dpig_tpu_torch.data.synthetic import SyntheticLoader
 from dpig_tpu_torch.kernels import pose_raster
@@ -318,3 +321,127 @@ def test_empty_output_launches_nothing(card):
     out = pose_raster.render_pose_maps_cuda(
         torch.zeros(0, 18 * 3, device=card), 32, 16)
     assert out.shape == (0, 32, 16, 18) and pose_raster.launches == before
+
+
+# The CPU's decoded keypoints for these seeds lie at least FLOOR_MARGIN px
+# from a floor boundary (checked below), so the maps cannot differ by luck.
+FLOOR_MARGIN = 1e-3
+BATCH_SEED, NOISE_SEED = 3, 1
+
+
+def _twins(card, tmp_path, cls, **flags):
+    """A cold-start tester on the card, its CPU twin with the same weights,
+    a batch and noise; then PyTorch's TF32 flags on (`tf32_on` turns them
+    off after the test)."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    t = cls(Config(platform="", model_dir=str(tmp_path), **SMALL, **flags))
+    c = cls(Config(platform="cpu", model_dir=str(tmp_path), **SMALL,
+                   **flags), params=t.cpu_state())
+    batch = next(SyntheticLoader(4, 32, 16, seed=BATCH_SEED))
+    noise = c.draw_noise(torch.Generator().manual_seed(NOISE_SEED), 4)
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    return t, c, batch, noise
+
+
+@pytest.fixture
+def tf32_on(card):
+    yield
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("pose_source", ["real", "reconstructed", "sampled"])
+@pytest.mark.parametrize("sample_app", [False, True])
+def test_full_sampling_step_on_the_card_matches_the_cpu(
+        card, tf32_on, tmp_path, pose_source, sample_app):
+    """The same weights and noise, TF32 flags on: g within 2e-2 on [0,255]
+    and the score within 1e-4 (the model-12 bounds), the rcv within 1e-5,
+    the pose maps and the decoded visibility bit-equal."""
+    t, c, batch, noise = _twins(card, tmp_path, FullSamplingTester,
+                                sample_app=sample_app)
+    before = pose_raster.launches
+    g, maps, score, rcv = t.sample_step(
+        batch_to_device(batch, card), {k: v.to(card) for k, v in
+                                       noise.items()}, pose_source)
+    assert pose_raster.launches == before + 1
+    g_c, maps_c, score_c, rcv_c = c.sample_step(
+        batch_to_device(batch, c.device), noise, pose_source)
+    if pose_source != "real":
+        assert pose.floor_margin(rcv_c, 32, 16) >= FLOOR_MARGIN
+        assert torch.equal(rcv[..., 2].cpu(), rcv_c[..., 2])
+    assert torch.equal(maps.cpu(), maps_c)
+    assert float((rcv.cpu() - rcv_c).abs().max()) <= 1e-5
+    assert float((g.cpu() - g_c).abs().max()) <= 2e-2
+    assert float((score.cpu() - score_c).abs().max()) <= 1e-4
+
+
+def test_factor_and_interpolation_on_the_card_match_the_cpu(card, tf32_on,
+                                                            tmp_path):
+    t, c, batch, noise = _twins(card, tmp_path, FactorSamplingTester,
+                                sample_fg=True, sample_pose=True)
+    g, maps, score = t.sample_step(batch_to_device(batch, card),
+                                   {k: v.to(card) for k, v in noise.items()})
+    g_c, maps_c, score_c = c.sample_step(batch_to_device(batch, c.device),
+                                         noise)
+    assert torch.equal(maps.cpu(), maps_c)
+    assert float((g.cpu() - g_c).abs().max()) <= 2e-2
+    assert float((score.cpu() - score_c).abs().max()) <= 1e-4
+
+    t, c, batch, _ = _twins(card, tmp_path, InterpolationTester,
+                            interpolate_pose=True)
+    embs, z = c._embed(batch_to_device(batch, c.device))
+    embs_t, z_t = t._embed(batch_to_device(batch, card))
+    assert float((embs_t.cpu() - embs).abs().max()) <= 1e-4
+    assert float((z_t.cpu() - z).abs().max()) <= 1e-5
+    assert pose.floor_margin(c.pose_ae.decode_rcv(z), 32, 16) >= FLOOR_MARGIN
+    g = t._decode(embs.to(card), z.to(card))
+    assert float((g.cpu() - c._decode(embs, z)).abs().max()) <= 2e-2
+
+
+def test_sampling_launch_counts(card, tmp_path):
+    """run(): 3 launches per model-11 batch (the step's pose, the `pose`
+    and `pose_target` trees) in every pose_source, 1 per model-13 batch,
+    1 for an interpolation; the ROI encoder never runs with sample_app."""
+    loader = SyntheticLoader(4, 32, 16, seed=1)
+    cfg = Config(platform="", model_dir=str(tmp_path), sample_app=True,
+                 **SMALL)
+    t = FullSamplingTester(cfg)
+    calls = []
+    t.stage1.encoder.register_forward_hook(lambda *_: calls.append(1))
+    for source in ("real", "reconstructed", "sampled"):
+        pose_raster.launches = 0
+        t.run(loader, test_batch_num=2, pose_source=source)
+        assert pose_raster.launches == 6, source
+    assert not calls
+    for cls, flags, expected in (
+            (FactorSamplingTester, {"sample_bg": True}, 2),
+            (FactorSamplingTester, {"sample_pose": True}, 2),
+            (InterpolationTester, {"interpolate_pose": True}, 1)):
+        t = cls(Config(platform="", model_dir=str(tmp_path), **SMALL,
+                       **flags))
+        pose_raster.launches = 0
+        if cls is InterpolationTester:
+            t.run(loader, n_steps=8)
+        else:
+            t.run(loader, test_batch_num=2)
+        assert pose_raster.launches == expected, (cls, flags)
+
+
+def test_kernel_on_decoded_rcv_matches_plain(card, tmp_path):
+    """The pose AE's decoded normalized rcv (the 'sampled' source at the
+    Market shape), rendered by the kernel at radius 4 and at the preview's
+    radius 0, bit-equal to the plain version on the same tensor."""
+    t = FullSamplingTester(Config(platform="", model_dir=str(tmp_path),
+                                  conv_hidden_num=16, z_num=16))
+    noise = t.draw_noise(torch.Generator().manual_seed(NOISE_SEED), 16)
+    with torch.inference_mode():
+        rcv = t.pose_ae.decode_rcv(t._pose_z({}, noise["pose"], "sampled"))
+        _, preview = t.pose_ae.decode_pose(t._pose_z({}, noise["pose"],
+                                                     "sampled"))
+    assert rcv.is_cuda and rcv.shape == (16, 18, 3)
+    for radius in (4, 0):
+        out = pose.render_pose_maps(rcv, 128, 64, 18, radius, True)
+        assert torch.equal(out, pose.render_pose_maps_plain(rcv, 128, 64, 18,
+                                                            radius, True))
+    assert torch.equal(preview, pose.render_pose_maps_plain(rcv, 128, 64, 18,
+                                                            0, True))

@@ -1,12 +1,13 @@
 """The port's profiler: its FLOP count per stage of the model-12
-transfer step, its phase-by-phase train step and its FLOPs, and its
-refusal to measure without a card."""
+transfer step, its stage-by-stage model-11 step, its phase-by-phase train
+step and its FLOPs, and its refusal to measure without a card."""
 import pytest
 import torch
 
 from dpig_tpu_torch.apps.common import batch_to_device
 from dpig_tpu_torch.apps.stage1_app import Stage1App
-from dpig_tpu_torch.apps.testers import ConditionalTransferTester
+from dpig_tpu_torch.apps.testers import (ConditionalTransferTester,
+                                         FullSamplingTester)
 from dpig_tpu_torch.config import Config
 from dpig_tpu_torch.data.synthetic import SyntheticLoader
 from dpig_tpu_torch.train import checkpoint as ckpt
@@ -76,6 +77,26 @@ def test_train_phase_flops(tmp_path):
     assert 1.5 < flops["g_backward"] / flops["g_forward"] <= 2.0
     assert 0 < flops["g_reforward"] < flops["g_forward"]
     assert flops["d_forward_backward"] > 0
+
+
+@pytest.mark.parametrize("sample_app", [False, True])
+def test_sampling_stages_mark_each_stage_and_compute_the_step(tmp_path,
+                                                              sample_app):
+    """The model-11 stage profile marks every stage in order and computes
+    bit for bit what sample_step computes (pose_source 'sampled')."""
+    cfg = Config(platform="cpu", model_dir=str(tmp_path),
+                 sample_app=sample_app, **SMALL)
+    tester = FullSamplingTester(cfg)
+    jb = batch_to_device(next(SyntheticLoader(4, 32, 16, seed=1)),
+                         tester.device)
+    noise = tester.draw_noise(torch.Generator().manual_seed(0), 4)
+    marks = []
+    g_raw, score = profiling.sampling_stages(tester, jb, noise, marks.append)
+    assert marks == list(profiling.SAMPLING_STAGES)
+    g, _, score_step, _ = tester.sample_step(jb, noise,
+                                             profiling.SAMPLING_SOURCE)
+    assert torch.equal(torch.clamp((g_raw + 1) * 127.5, 0, 255), g)
+    assert torch.equal(score, score_step)
 
 
 def test_profiling_refuses_to_run_without_a_card():

@@ -14,7 +14,7 @@ from dpig_tpu.config import Config as JaxConfig
 from dpig_tpu.data.synthetic import SyntheticLoader as JaxLoader
 from dpig_tpu_torch.apps import testers
 from dpig_tpu_torch.apps.common import batch_to_device
-from dpig_tpu_torch.bridge import SUBTREES, params_from_flax
+from dpig_tpu_torch.bridge import params_from_flax
 from dpig_tpu_torch.config import Config
 from dpig_tpu_torch.data.synthetic import SyntheticLoader
 
@@ -31,7 +31,8 @@ def small_cfg(tmp_path, **kw):
 def test_transfer_step_matches_jax_tester(tmp_path):
     jt = jtesters.ConditionalTransferTester(
         JaxConfig(model_dir=str(tmp_path), **SMALL))
-    state = params_from_flax({k: jt.params[k] for k in SUBTREES})
+    state = params_from_flax(jt.params,
+                             testers.ConditionalTransferTester.SUBTREES)
     t = testers.ConditionalTransferTester(small_cfg(tmp_path), params=state)
     batch = next(JaxLoader(4, 32, 16, seed=3))
     g_ref, pose_ref, score_ref = jt.transfer_step(
@@ -46,21 +47,32 @@ def test_transfer_step_matches_jax_tester(tmp_path):
 
 
 def test_forwards_run_float32_whatever_the_tf32_flags(tmp_path):
-    """Stage1App owns the precision: with PyTorch's TF32 flags on, every
-    module of transfer_step still runs with them off, and the caller's
-    flags come back after."""
+    """Stage1App, the pose AE and the testers' mappers own the precision:
+    with PyTorch's TF32 flags on, every module of transfer_step, and every
+    module of the sampling steps (the Gaussian mappers, the pose encoder
+    and decoder), still runs with them off, and the caller's flags come
+    back after."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     t = testers.ConditionalTransferTester(small_cfg(tmp_path))
+    s = testers.FullSamplingTester(small_cfg(tmp_path, sample_app=True))
     seen = []
-    for m in (t.stage1.encoder, t.stage1.generator, t.stage1.disc):
+    modules = [t.stage1.encoder, t.stage1.generator, t.stage1.disc,
+               *s.mappers.values(), s.pose_ae.encoder, s.pose_ae.decoder]
+    for m in modules:
         m.register_forward_pre_hook(
             lambda *_: seen.append((cudnn.allow_tf32, matmul.allow_tf32)))
+    batch = next(SyntheticLoader(4, 32, 16, seed=3))
     saved = cudnn.allow_tf32, matmul.allow_tf32
     cudnn.allow_tf32 = matmul.allow_tf32 = True
     try:
-        t.transfer_step(batch_to_device(next(SyntheticLoader(4, 32, 16, seed=3)),
-                                        t.device))
+        t.transfer_step(batch_to_device(batch, t.device))
         assert seen == [(False, False)] * 3
+        noise = s.draw_noise(torch.Generator().manual_seed(0), 4)
+        for source in ("sampled", "reconstructed"):
+            s.sample_step(batch_to_device(batch, s.device), noise, source)
+        # per step the FG and BG mappers, the pose mapper or the pose
+        # encoder, and the pose decoder
+        assert seen == [(False, False)] * 11
         assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
@@ -111,5 +123,7 @@ def test_unported_options_raise(tmp_path):
         testers.ConditionalTransferTester(
             small_cfg(tmp_path, inference_dtype="int8"))
     from dpig_tpu_torch import main
-    with pytest.raises(NotImplementedError, match="model=11"):
-        main.test_model(small_cfg(tmp_path, model=11))
+    with pytest.raises(NotImplementedError, match="model=1002"):
+        main.test_model(small_cfg(tmp_path, model=1002))
+    with pytest.raises(NotImplementedError, match="model=2"):
+        main.train_model(small_cfg(tmp_path, model=2))
