@@ -72,12 +72,42 @@ Phases, each printing one line; any failure exits non-zero:
               exceed the embedding limit and, for a decoded pose, the rcv
               limit.
 
+ 10. stage-2 train  the Market training chain through the CLI at full
+              width, batch 16, each stage on the port checkpoints of the
+              stages before it: model 2 (the pose AE, POSE_AE_STEPS steps;
+              the pose kernel launched once, for the fixed pose preview),
+              model 3 (`--pretrained_path=` phase 6's model-1 dir,
+              STAGE2_STEPS steps, `fresh` batches) and model 4
+              (`--pretrained_path=`, `--pretrained_poseAE_path=` model 2's):
+              per-step ms, finite metrics, the hist means and deviations in
+              metrics.jsonl, every critic parameter within +-0.01 and the
+              frozen nets equal to the checkpoints they came from in the
+              saved checkpoint, the ROI encoder run exactly 6 times per
+              model-3 train step and 0 times per model-4 step (once per
+              model-4 preview, never in a model-3 one), the pose kernel
+              launched once plus once per preview; then model 11
+              (`--sample_app=true --pose_source=sampled`, CHAIN_BATCHES
+              batches) with all four `--pretrained_*` flags on those
+              model_dirs: no RANDOM-init line, the trained weights loaded,
+              the tree written, every score 0 (no D, as in JAX), 3 pose
+              launches per batch;
+ 11. stage-2 parity  one model-3 and one model-4 train step, batch 2 at
+              full width, `fresh` batches, the same weights and noise on
+              the card and on the CPU, the card's critic iterations started
+              where the CPU's were (`train.parity.recorded_train_step`):
+              the G and D losses, the mapper and critic gradients and the
+              real and fake embeddings within STAGE2_PARITY_TOL, in float32
+              and with the TF32 flags on; the step past its float32 guard
+              with TF32 on must exceed it on each of them.
+
 The line before the last is {"kernels": [...]}, with the pose kernel's
 launches on each path; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
+import io
 import json
 import os
 import statistics
@@ -145,6 +175,19 @@ TRAIN_PARITY_TOL = {"g_step_losses": 1e-5, "d_loss": 1e-5, "Encoder": 5e-3,
 # 8.1e-4 and 1.1e-3 and are shown, not checked.
 L1_GRAD_TOL = {"ID_AE": 1e-4}
 G_NETS = ("Encoder", "ID_AE")
+POSE_AE_STEPS, POSE_AE_LOG_STEP = 10, 5
+STAGE2_STEPS, STAGE2_LOG_STEP, CHAIN_BATCHES = 4, 1, 2
+# Card vs CPU limit on every error of one Stage-II train step (keys of
+# `train.parity.step_errors`: losses relative, gradients ||diff|| / ||grad||
+# and max|diff| / max|grad|, embeddings max |diff|), batch 2 at full width,
+# models 3 and 4. On an NVIDIA H100 80GB HBM3 at 700 W this phase read at
+# most 8.5e-7 in float32 and with the TF32 flags on (losses 0 to 5.3e-7,
+# gradients 1.3e-7 to 8.5e-7, embeddings 1.2e-7 to 4.8e-7), and at least
+# 8.0e-5 past the float32 guard with TF32 on (model 4's G loss 8.0e-5,
+# model 3's real FG embeddings 8.7e-5, the gradients 1.3e-2 to 5.0e-1): so
+# 1e-5, at least 8x from each reading, and the control must exceed it on
+# every key.
+STAGE2_PARITY_TOL = 1e-5
 
 
 def _graph_ms(fn, reps: int = 25, inner: int = 20) -> float:
@@ -631,14 +674,18 @@ def phase_sampling_parity(card_tester, model_dir):
         raise AssertionError("; ".join(failures))
 
 
+def _previews(max_step: int, log_step: int) -> int:
+    """Previews of a Trainer run from step 0 to max_step: step 0 and every
+    3 * log_step steps (train/harness.py)."""
+    every = 3 * log_step
+    return sum(1 for s in range(max_step) if s == 0 or s % every == every - 1)
+
+
 def _expected_train_launches(cfg) -> int:
-    """Pose-kernel launches of a Trainer run from step 0 to cfg.max_step:
-    one per train step, one for the fixed pose preview, one per preview
-    (step 0 and every 3 * log_step steps, train/harness.py)."""
-    every = 3 * cfg.log_step
-    previews = sum(1 for s in range(cfg.max_step)
-                   if s == 0 or s % every == every - 1)
-    return cfg.max_step + 1 + previews
+    """Pose-kernel launches of a model-1 Trainer run from step 0 to
+    cfg.max_step: one per train step, one for the fixed pose preview, one
+    per preview."""
+    return cfg.max_step + 1 + _previews(cfg.max_step, cfg.log_step)
 
 
 def phase_train(model_dir):
@@ -843,6 +890,247 @@ def phase_train_parity(model_dir):
                                  f"the check cannot see TF32")
 
 
+def phase_stage2_train(tmp, m1_dir):
+    """Models 2, 3 and 4 through the CLI, chained on the port's own
+    checkpoints, then model 11 on all four -> launches per path."""
+    from dpig_tpu_torch.apps.stage1_pose import Stage1PoseApp
+    from dpig_tpu_torch.apps.stage2_app import Stage2AppApp
+    from dpig_tpu_torch.apps.stage2_pose import Stage2PoseApp
+    from dpig_tpu_torch.apps.testers import FullSamplingTester
+    from dpig_tpu_torch.models.encoders import RoiEncoderFgBg
+    from dpig_tpu_torch.train import checkpoint as ckpt
+    dirs = {m: os.path.join(tmp, f"m{m}") for m in (2, 3, 4, 11)}
+    encoder_calls = [0]
+    steps = {2: [], 3: [], 4: []}  # (ms, encoder calls, finite) per step
+    testers = []
+
+    def count_encoder(module, args, out):
+        if isinstance(module, RoiEncoderFgBg):
+            encoder_calls[0] += 1
+
+    def timed(model, step):
+        def run(app, state, *args):  # synchronized, so ms are the card's
+            calls, t0 = encoder_calls[0], time.perf_counter()
+            out = step(app, state, *args)
+            torch.cuda.synchronize()
+            steps[model].append(((time.perf_counter() - t0) * 1e3,
+                                 encoder_calls[0] - calls,
+                                 all(bool(torch.isfinite(v).all())
+                                     for v in out.values())))
+            return out
+        return run
+
+    def recorded_sample_step(self, *args, **kwargs):
+        testers.append(self)
+        return sample_step(self, *args, **kwargs)
+
+    classes = {2: Stage1PoseApp, 3: Stage2AppApp, 4: Stage2PoseApp}
+    originals = {m: cls.train_step for m, cls in classes.items()}
+    sample_step = FullSamplingTester.sample_step
+    common = ["--synthetic_data=true"]
+    argv = {
+        2: ["--model=2", f"--max_step={POSE_AE_STEPS}",
+            f"--log_step={POSE_AE_LOG_STEP}"],
+        3: ["--model=3", f"--max_step={STAGE2_STEPS}",
+            f"--log_step={STAGE2_LOG_STEP}", f"--pretrained_path={m1_dir}"],
+        4: ["--model=4", f"--max_step={STAGE2_STEPS}",
+            f"--log_step={STAGE2_LOG_STEP}", f"--pretrained_path={m1_dir}",
+            f"--pretrained_poseAE_path={dirs[2]}"],
+        11: ["--model=11", "--is_train=false", "--sample_app=true",
+             "--pose_source=sampled", f"--test_batch_num={CHAIN_BATCHES}",
+             f"--pretrained_path={m1_dir}",
+             f"--pretrained_poseAE_path={dirs[2]}",
+             f"--pretrained_appSample_path={dirs[3]}",
+             f"--pretrained_poseSample_path={dirs[4]}"]}
+    launches, walls, encoder_total = {}, {}, {}
+    out11 = io.StringIO()
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        count_encoder)
+    for m, cls in classes.items():
+        cls.train_step = timed(m, originals[m])
+    FullSamplingTester.sample_step = recorded_sample_step
+    try:
+        for m in (2, 3, 4, 11):
+            calls = encoder_calls[0]
+            with (contextlib.redirect_stdout(out11) if m == 11
+                  else contextlib.nullcontext()):
+                launches[m], walls[m] = _run_cli(
+                    [*argv[m], *common, f"--model_dir={dirs[m]}"])
+            encoder_total[m] = encoder_calls[0] - calls
+    finally:
+        hook.remove()
+        for m, cls in classes.items():
+            cls.train_step = originals[m]
+        FullSamplingTester.sample_step = sample_step
+
+    failures = []
+    s1 = ckpt.restore_subtrees(m1_dir, ["Encoder", "ID_AE"])
+    trees = {m: ckpt.load_tree(dirs[m]) for m in (2, 3, 4)}
+    frozen_want = {3: s1, 4: {**s1, "PoseAE": trees[2]["g_params"]["PoseAE"]}}
+    for m, n_steps, log_step in ((2, POSE_AE_STEPS, POSE_AE_LOG_STEP),
+                                 (3, STAGE2_STEPS, STAGE2_LOG_STEP),
+                                 (4, STAGE2_STEPS, STAGE2_LOG_STEP)):
+        with open(os.path.join(dirs[m], "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        previews = 0 if m == 2 else _previews(n_steps, log_step)
+        ms = [x[0] for x in steps[m]]
+        tree = trees[m]
+        critic_max = max((float(t.abs().max()) for sub in
+                          tree.get("d_params", {}).values()
+                          for t in sub.values()), default=None)
+        frozen_ok = ("frozen_params" not in tree if m == 2 else
+                     not _tree_differences(tree["frozen_params"],
+                                           frozen_want[m]))
+        hist_keys = sorted(k for k in logged[0] if k.endswith(("_mean",
+                                                               "_std")))
+        per_step_encoder = sorted({x[1] for x in steps[m]})
+        print(f"[stage2 train] model {m} (CLI, batch 16, {n_steps} steps, "
+              f"log_step {log_step}): wall {walls[m]:.1f} s; per-step ms "
+              f"after the first {[round(x, 2) for x in ms[1:]]} (first "
+              f"{ms[0]:.1f}); {16 * 1e3 / statistics.median(ms[1:]):.2f} "
+              f"images/s at the median (batch_size per step, as JAX counts)"
+              f"; metrics.jsonl steps {[r['step'] for r in logged]}, hist "
+              f"keys {hist_keys}; ROI encoder calls per step "
+              f"{per_step_encoder}, in all {encoder_total[m]}; pose kernel "
+              f"launches {launches[m]} (expected {1 + previews}); "
+              f"checkpoint step {tree['step']}, critic max |w| {critic_max}, "
+              f"frozen nets equal to their sources: {frozen_ok}", flush=True)
+        if launches[m] != 1 + previews:
+            failures.append(f"model {m}: {launches[m]} pose launches")
+        if len(steps[m]) != n_steps or not all(x[2] for x in steps[m]):
+            failures.append(f"model {m}: steps {steps[m]}")
+        want_steps = [s for s in range(n_steps)
+                      if s == 0 or s % log_step == log_step - 1]
+        if [r["step"] for r in logged] != want_steps or not all(
+                np.isfinite(v) for r in logged for v in r.values()):
+            failures.append(f"model {m}: metrics.jsonl {logged}")
+        if tree["step"] != n_steps or not frozen_ok:
+            failures.append(f"model {m}: checkpoint step {tree['step']}, "
+                            f"frozen nets equal {frozen_ok}")
+        if m != 2 and (critic_max > 0.01 or len(hist_keys) != (
+                8 if m == 3 else 4)):
+            failures.append(f"model {m}: critic max {critic_max}, hists "
+                            f"{hist_keys}")
+    per_step = sorted({x[1] for x in steps[3]})
+    if per_step != [6]:
+        failures.append(f"model 3: ROI encoder calls per step {per_step}")
+    if encoder_total[3] != 6 * STAGE2_STEPS:
+        failures.append(f"model 3: {encoder_total[3]} encoder calls")
+    if sorted({x[1] for x in steps[4]}) != [0] or encoder_total[4] != \
+            _previews(STAGE2_STEPS, STAGE2_LOG_STEP):
+        failures.append(f"model 4: encoder calls {encoder_total[4]}")
+
+    tester = testers[0]
+    root = os.path.join(dirs[11], "test_result_SampleAppTruePose-sampled_"
+                        f"{CHAIN_BATCHES}x16")
+    counts = {d: len(os.listdir(os.path.join(root, d)))
+              for d in sorted(os.listdir(root))}
+    g_names = sorted(os.listdir(os.path.join(root, "G")))
+    zeros = all(n.endswith("_score0.000.png") for n in g_names)
+    state = tester.cpu_state()
+    sources = {"Encoder": s1["Encoder"], "ID_AE": s1["ID_AE"],
+               "PoseAE": trees[2]["g_params"]["PoseAE"],
+               "PoseGaussian": trees[4]["g_params"]["PoseGaussian"],
+               **{k: trees[3]["g_params"][k]
+                  for k in ("Gaussian_FC_Fg", "Gaussian_FC_Bg")}}
+    loaded = not any(_tree_differences(state[k], v)
+                     for k, v in sources.items())
+    random_init = "RANDOM" in out11.getvalue()
+    print(f"[stage2 chain] model 11 with the four --pretrained_* flags on "
+          f"models 1-4: {CHAIN_BATCHES} batches in {walls[11]:.1f} s, "
+          f"RANDOM-init line: {random_init}, trained weights loaded: "
+          f"{loaded}, D: {tester.stage1.disc is not None}, files {counts}, "
+          f"all scores 0: {zeros}, pose kernel launches {launches[11]} "
+          f"(expected {3 * CHAIN_BATCHES})", flush=True)
+    if random_init or not loaded or not zeros or tester.stage1.disc is not \
+            None or launches[11] != 3 * CHAIN_BATCHES or counts.get(
+                "G") != CHAIN_BATCHES * 16:
+        failures.append("model 11 on the trained chain")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"model 2 training": launches[2], "model 3 training": launches[3],
+            "model 4 training": launches[4],
+            "model 11 on trained weights": launches[11]}
+
+
+@contextlib.contextmanager
+def _stage2_unguarded(app):
+    """The app's Stage-II step with its forwards (mappers, frozen encoder)
+    and its backward passes and updates past the float32 guard, so that the
+    caller's TF32 flags reach cuBLAS and cuDNN."""
+    from dpig_tpu_torch.apps.stage2_app import WganSamplerApp
+
+    def sample(noise):
+        zs = torch.split(noise, list(app.noise_dims), dim=-1)
+        return [m(z) for m, z in zip(app.mappers.values(), zs)]
+
+    encoder = ((app.pose_ae, "encode", app.pose_ae.encoder)
+               if hasattr(app, "pose_ae")
+               else (app.stage1, "_encode", app.stage1.encoder))
+    patches = [(app, "sample_embs", sample),
+               (app, "wgan_step", functools.partial(
+                   WganSamplerApp.wgan_step.__wrapped__, app)), encoder]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        yield
+    finally:
+        for obj, name, _ in patches:
+            delattr(obj, name)
+
+
+def phase_stage2_parity(model_dir):
+    """One model-3 and one model-4 step, batch 2 at full width, card vs
+    CPU: float32, TF32 flags on, and past the float32 guard with TF32 on
+    (the control)."""
+    from dpig_tpu_torch.apps.common import select_device
+    from dpig_tpu_torch.apps.stage2_app import Stage2AppApp
+    from dpig_tpu_torch.apps.stage2_pose import Stage2PoseApp
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data.synthetic import SyntheticLoader
+    from dpig_tpu_torch.train.parity import recorded_train_step, step_errors
+    cfgs = {p: Config(platform=p, batch_size=2, model_dir=model_dir)
+            for p in ("", "cpu")}
+    loader = SyntheticLoader(2, cfgs[""].img_H, cfgs[""].img_W, seed=97)
+    host = tuple(next(loader) for _ in range(6))
+    runs = {"float32": (False, False), "TF32 flags on": (True, False),
+            "control: past the guard, TF32": (True, True)}
+    errs, failures = {}, []
+    for model, cls in ((3, Stage2AppApp), (4, Stage2PoseApp)):
+        cpu_app = cls(cfgs["cpu"], torch.device("cpu"))
+        noise = cpu_app.step_noise(torch.Generator().manual_seed(5), 2)
+        ref = recorded_train_step(cpu_app, host, noise=noise)
+        del cpu_app
+        for label, (tf32, unguarded) in runs.items():
+            app = cls(cfgs[""], select_device(""))
+            _set_tf32(tf32)
+            try:
+                with (_stage2_unguarded(app) if unguarded
+                      else contextlib.nullcontext()):
+                    got = recorded_train_step(app, host, noise=noise,
+                                              g_updated=ref.g_updated,
+                                              d_clipped=ref.d_clipped)
+            finally:
+                _set_tf32(False)
+            e = errs[model, label] = step_errors(ref, got)
+            del app, got
+            print(f"[stage2 parity] model {model}, {label}: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in e.items()), flush=True)
+            if unguarded:
+                failures += [f"model {model}: TF32 past the guard passes the "
+                             f"{k} limit" for k, v in e.items()
+                             if v <= STAGE2_PARITY_TOL]
+            else:
+                failures += [f"model {model}, {label}: {k} {v:.3e}"
+                             for k, v in e.items() if v > STAGE2_PARITY_TOL]
+    print(f"[stage2 parity] card vs CPU, one step, batch 2 at full width, "
+          f"fresh batches (losses: relative diff; nets: gradient ||diff|| / "
+          f"||grad||, 'max': max|diff| / max|grad|; hist/: max abs diff); "
+          f"tolerance {STAGE2_PARITY_TOL} on each", flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card",
@@ -862,8 +1150,10 @@ def main() -> int:
         del tester
         train = phase_train(os.path.join(tmp, "m1"))
         phase_train_parity(os.path.join(tmp, "m1_parity"))
+        stage2 = phase_stage2_train(tmp, os.path.join(tmp, "m1"))
+        phase_stage2_parity(os.path.join(tmp, "stage2_parity"))
     by_path = {"model 12 transfer": model12, **sampling,
-               "model 1 training": train}
+               "model 1 training": train, **stage2}
     kernel["launches"] = sum(by_path.values())
     kernel["launches_by_path"] = by_path
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s",

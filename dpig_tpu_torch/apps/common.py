@@ -1,4 +1,4 @@
-"""Shared glue for the model apps (port of `dpig_tpu/apps/common.py:26-57`)
+"""Shared glue for the model apps (port of `dpig_tpu/apps/common.py:13-57`)
 plus the port's device rule."""
 from __future__ import annotations
 
@@ -8,7 +8,20 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..losses import gan
 from ..ops.pose import render_pose_maps
+
+
+def critic_batches_per_step(cfg: Config) -> int:
+    """Loader batches a Stage-II WGAN step consumes: 1+CRITIC_ITERS under
+    the reference's fresh-batch-per-critic-iteration queue semantics
+    (`--critic_batch_mode=fresh`, the default), 1 for the step that reuses
+    one batch (`reused`)."""
+    if cfg.critic_batch_mode not in ("fresh", "reused"):
+        raise ValueError(
+            f"--critic_batch_mode must be 'fresh' or 'reused', "
+            f"got {cfg.critic_batch_mode!r}")
+    return 1 + gan.CRITIC_ITERS if cfg.critic_batch_mode == "fresh" else 1
 
 
 def select_device(platform: str) -> torch.device:

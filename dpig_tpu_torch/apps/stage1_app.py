@@ -14,7 +14,6 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from ..bridge import load_state
 from ..config import Config
 from ..losses import gan
 from ..models.discriminators import get_discriminator
@@ -46,19 +45,23 @@ def full_float32():
 
 
 class Stage1App:
-    """Encoder, generator and D of Stage I on `device`, frozen until
-    `init_state` makes them trainable.
+    """Encoder, generator and (with `disc`) D of Stage I on `device`,
+    frozen until `init_state` makes them trainable.
 
-    Weights are fresh (Xavier / normal(0.02), from a CPU torch.Generator
-    seeded with `cfg.random_seed`, so the CPU and the card get the same
-    numbers) unless `state` from `bridge.params_from_flax` is given. The
-    app owns the precision: `compute_dtype` float32 runs every forward, and
-    the whole train step with its backward passes and optimizer updates,
-    under `full_float32`.
+    Each net whose sub-tree ('Encoder', 'ID_AE', 'Discriminator' with its
+    'Discriminator_stats') is in `state`, the format of
+    `bridge.params_from_flax` and `train.checkpoint.restore_subtrees`, is
+    loaded from it; the others get fresh weights (Xavier / normal(0.02),
+    from a CPU torch.Generator seeded with `cfg.random_seed`, so the CPU
+    and the card get the same numbers). `disc=False` builds no D (the
+    Stage-II samplers, and the testers given every sub-tree they need but
+    no D). The app owns the precision: `compute_dtype` float32 runs every
+    forward, and the whole train step with its backward passes and
+    optimizer updates, under `full_float32`.
     """
 
     def __init__(self, cfg: Config, device: torch.device,
-                 state: Optional[Mapping] = None):
+                 state: Optional[Mapping] = None, disc: bool = True):
         if cfg.img_H >= 256:
             raise NotImplementedError(
                 "the 256x256 family (models 101-104/1001/1002) is not ported "
@@ -78,16 +81,21 @@ class Stage1App:
             emb_dim=cfg.roi_part_num * cfg.roi_z_num + cfg.roi_z_num * 4,
             pose_ch=cfg.keypoint_num, out_channels=3, z_num=cfg.z_num,
             repeat_num=cfg.repeat_num, hidden_num=cfg.conv_hidden_num)
-        self.disc = get_discriminator(cfg.D_arch, cfg.img_H, cfg.img_W,
-                                      n_stages=4)
-        modules = (self.encoder, self.generator, self.disc)
-        if state is None:
-            gen = torch.Generator().manual_seed(cfg.random_seed)
-            for m in modules:
+        modules = {"Encoder": self.encoder, "ID_AE": self.generator}
+        self.disc = None
+        if disc:
+            self.disc = get_discriminator(cfg.D_arch, cfg.img_H, cfg.img_W,
+                                          n_stages=4)
+            modules["Discriminator"] = self.disc
+        state = state or {}
+        gen = torch.Generator().manual_seed(cfg.random_seed)
+        for name, m in modules.items():
+            if name in state:  # strict: missing or extra keys raise
+                m.load_state_dict({**state[name],
+                                   **state.get(f"{name}_stats", {})},
+                                  strict=True)
+            else:
                 init_weights(m, gen)
-        else:
-            load_state(*modules, state)
-        for m in modules:
             m.to(device).eval().requires_grad_(False)
 
     # ------------------------------------------------------------ forward

@@ -1,14 +1,13 @@
-"""Stage-I pose autoencoder, the inference half (port of
-`dpig_tpu/apps/stage1_pose.py:21-54,73-82`; reference model 2 / 102,
-trainer.py:629-711 DPIG_PoseRCV_AE_BodyROI).
+"""Stage-I pose autoencoder (port of `dpig_tpu/apps/stage1_pose.py`;
+reference model 2 / 102, trainer.py:629-711 DPIG_PoseRCV_AE_BodyROI).
 
-18x(row,col,vis) normalized to [-1,1] -> FC-res AE; the visibility is
-decoded through the straight-through binary round. Its training (model 2)
-is not ported yet (ROADMAP queue item 3).
+18x(row,col,vis) normalized to [-1,1] -> FC-res AE; loss = 20 * MSE;
+Adam(b1=0.5); the visibility is decoded through the straight-through binary
+round, whose gradient is the identity.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -16,18 +15,22 @@ from torch import nn
 from ..config import Config
 from ..models.layers import init_weights
 from ..models.pose_ae import PoseDecoderFC, PoseEncoderFC, assemble_pose_rcv
-from ..ops.pose import render_pose_maps
+from ..ops.pose import pose_rcv_normalize, render_pose_maps
+from ..train.state import GanState
 from .stage1_app import full_float32
 
 POSE_Z = 32  # dpig_tpu/apps/stage2_pose.py:33
 
 
 class Stage1PoseApp:
-    """The pose AE's encoder and decoder on `device`, frozen, as the
-    sub-tree `PoseAE` (`G_Pose_Encoder` / `G_Pose_Decoder`) of a
-    `bridge.params_from_flax` state, or fresh (Xavier, from `gen`, a CPU
+    """The pose AE's encoder and decoder on `device`, frozen until
+    `init_state` makes them trainable: the sub-tree `PoseAE`
+    (`G_Pose_Encoder` / `G_Pose_Decoder`) of `state` (a
+    `bridge.params_from_flax` state or `checkpoint.restore_subtrees`
+    result) if it holds one, else fresh (Xavier, from `gen`, a CPU
     torch.Generator; one seeded with `cfg.random_seed` if not given). Its
-    forwards run under `full_float32`."""
+    forwards, and its train step with the backward pass and the update,
+    run under `full_float32`."""
 
     def __init__(self, cfg: Config, device: torch.device,
                  state: Optional[Mapping] = None,
@@ -39,11 +42,11 @@ class Stage1PoseApp:
         self.decoder = PoseDecoderFC(k, POSE_Z, repeat_num=4, hidden_num=512)
         self.nets = nn.ModuleDict({"G_Pose_Encoder": self.encoder,
                                    "G_Pose_Decoder": self.decoder})
-        if state is None:
+        if state and "PoseAE" in state:
+            self.nets.load_state_dict(state["PoseAE"], strict=True)
+        else:
             init_weights(self.nets, gen if gen is not None else
                          torch.Generator().manual_seed(cfg.random_seed))
-        else:
-            self.nets.load_state_dict(state["PoseAE"], strict=True)
         self.nets.to(device).eval().requires_grad_(False)
 
     @full_float32()
@@ -72,7 +75,28 @@ class Stage1PoseApp:
                                      cfg.keypoint_num, radius=0,
                                      normalized=True)
 
-    def train_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the pose AE's train step (model 2) is not ported to "
-            "dpig_tpu_torch yet (ROADMAP queue item 3)")
+    # --------------------------------------------------------------- train
+    def init_state(self) -> GanState:
+        """Make the AE trainable and wrap it with Adam(0.5, 0.999), no D
+        (stage1_pose.py:30-46)."""
+        cfg = self.cfg
+        self.nets.requires_grad_(True)
+        return GanState.create(g_nets={"PoseAE": self.nets}, mode="ae",
+                               g_lr=cfg.g_lr,
+                               lr_update_step=cfg.lr_update_step,
+                               step=cfg.start_step)
+
+    @full_float32()
+    def train_step(self, state: GanState, batch: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """One Adam update of the AE on 20 * MSE of the normalized rcv
+        (stage1_pose.py:56-71), in place on `state` (from this app's
+        `init_state`); state.step += 1."""
+        cfg = self.cfg
+        rcv_norm = pose_rcv_normalize(batch["pose_rcv"], cfg.img_H, cfg.img_W)
+        recon, _ = self.autoencode(rcv_norm.reshape(rcv_norm.shape[0], -1))
+        mse = torch.mean((rcv_norm - recon) ** 2)
+        loss = mse * 20.0  # trainer.py:670
+        state.g_opt.step(torch.autograd.grad(loss, state.g_params))
+        state.step += 1
+        return {"reconstruct_loss": mse.detach(), "loss": loss.detach()}

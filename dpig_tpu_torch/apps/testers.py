@@ -3,8 +3,12 @@
 only) and factor interpolation.
 
 Each writes the PNG directory tree that score.py consumes. Weights come
-from a `bridge.params_from_flax` state holding the tester's `SUBTREES`, or
-are fresh (loudly) on a cold start.
+from `params` (a `bridge.params_from_flax` state holding the tester's
+`SUBTREES`) or else from the port checkpoints the `--pretrained_*` flags
+name (`train.checkpoint.compose_pretrained`); sub-trees the tester needs
+and neither gives are fresh, loudly. As in the JAX package, the D scores
+the images only if a `Discriminator` was given or the nets are fresh;
+otherwise the scores are zeros (testers.py:94-106,277-284).
 
 Random draws: the JAX package draws mapper noise with threefry from
 PRNGKey(0); the port cannot reproduce those numbers, so the sampling steps
@@ -41,14 +45,12 @@ from ..models.layers import init_weights
 from ..models.mappers import GaussianMapper, sample_mapper_noise
 from ..ops.image import slerp
 from ..ops.pose import pose_rcv_normalize, render_pose_maps
+from ..train.checkpoint import compose_pretrained
 from ..utils.viz import pose_to_gray, save_image
 from .common import (batch_to_device, pose_maps_from_batch,
                      select_device, select_parts)
 from .stage1_app import Stage1App, full_float32
 from .stage1_pose import POSE_Z, Stage1PoseApp
-
-_PRETRAINED_FLAGS = ("pretrained_path", "pretrained_appSample_path",
-                     "pretrained_poseAE_path", "pretrained_poseSample_path")
 
 
 def _save_dir_tree(root: str, names) -> Dict[str, str]:
@@ -75,7 +77,7 @@ class _TesterBase:
     """Stage-I nets on the device `cfg.platform` names ('' = the card), and
     the sampling nets its `SUBTREES` name: the pose AE (`PoseAE`) and the
     Gaussian mappers (`PoseGaussian`, `Gaussian_FC_Fg`, `Gaussian_FC_Bg`).
-    On a cold start the sampling nets are fresh from one CPU
+    A sampling net missing from the weights is fresh from one CPU
     torch.Generator seeded with `cfg.random_seed`, in that order, so the
     card and the CPU get the same numbers."""
 
@@ -83,13 +85,6 @@ class _TesterBase:
     MAPPERS = ("PoseGaussian", "Gaussian_FC_Fg", "Gaussian_FC_Bg")
 
     def __init__(self, cfg: Config, params: Optional[Mapping] = None):
-        for flag in _PRETRAINED_FLAGS:
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"--{flag}: orbax checkpoints are not readable by "
-                    "dpig_tpu_torch yet (ROADMAP queue item 5); bridge the "
-                    "flax params with bridge.params_from_flax and pass them "
-                    "as `params`")
         if cfg.inference_dtype == "int8":
             raise NotImplementedError(
                 "--inference_dtype=int8 needs models/quant.py and its s8 conv "
@@ -98,12 +93,18 @@ class _TesterBase:
         self.cfg = cfg
         self.device = select_device(cfg.platform)
         if params is None:
+            params = compose_pretrained(cfg)
+        missing = sorted(s for s in self.SUBTREES if s not in params
+                         and not s.startswith("Discriminator"))
+        if missing:
             # Cold start (tests / smoke runs): loudly, so a production run
-            # without weights is obvious.
+            # with forgotten --pretrained_* flags is obvious.
             print(f"[!] {type(self).__name__}: no pretrained weights for "
-                  f"{sorted(self.SUBTREES)} — using RANDOM init (pass "
-                  "bridged params for real inference)", flush=True)
-        self.stage1 = Stage1App(cfg, self.device, state=params)
+                  f"{missing} — using RANDOM init (pass the --pretrained_* "
+                  "flags for real inference)", flush=True)
+        self.stage1 = Stage1App(cfg, self.device, state=params,
+                                disc=bool(missing)
+                                or "Discriminator" in params)
         self.fg_dim = cfg.roi_part_num * cfg.roi_z_num
         gen = torch.Generator().manual_seed(cfg.random_seed)
         if "PoseAE" in self.SUBTREES:
@@ -116,10 +117,10 @@ class _TesterBase:
             if name in self.SUBTREES:
                 dim, hidden = widths[name]
                 mapper = GaussianMapper(dim, dim, hidden)
-                if params is None:
-                    init_weights(mapper, gen)
-                else:
+                if name in params:
                     mapper.load_state_dict(params[name], strict=True)
+                else:
+                    init_weights(mapper, gen)
                 self.mappers[name] = mapper.to(self.device).eval(
                 ).requires_grad_(False)
 
@@ -128,14 +129,13 @@ class _TesterBase:
         running statistics inside `Discriminator`), to build a twin of it
         on another device."""
         s1 = self.stage1
-        nets = {"Encoder": s1.encoder, "ID_AE": s1.generator,
-                "Discriminator": s1.disc, **self.mappers}
+        nets = {"Encoder": s1.encoder, "ID_AE": s1.generator, **self.mappers}
+        if s1.disc is not None:
+            nets["Discriminator"] = s1.disc
         if "PoseAE" in self.SUBTREES:
             nets["PoseAE"] = self.pose_ae.nets
-        state = {name: {k: v.cpu() for k, v in net.state_dict().items()}
-                 for name, net in nets.items()}
-        state["Discriminator_stats"] = {}
-        return state
+        return {name: {k: v.cpu() for k, v in net.state_dict().items()}
+                for name, net in nets.items()}
 
     def draw_noise(self, gen: torch.Generator, b: int
                    ) -> Dict[str, torch.Tensor]:
@@ -166,9 +166,10 @@ class _TesterBase:
 
     def _disc_score(self, g_raw: torch.Tensor) -> torch.Tensor:
         """D logits of the generated batch, normalized by its own batch
-        statistics (flax train=True with the updated stats discarded). The
-        JAX package scores zeros when it has no `Discriminator`
-        (testers.py:277-284); every port tester requires one."""
+        statistics (flax train=True with the updated stats discarded), or
+        zeros without a D (testers.py:277-284)."""
+        if self.stage1.disc is None:
+            return torch.zeros(g_raw.shape[0], device=g_raw.device)
         return self.stage1._disc_apply(g_raw, train=True)
 
     def _pose_z(self, batch: Mapping[str, torch.Tensor],

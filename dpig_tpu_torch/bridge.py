@@ -20,7 +20,9 @@ Submodule paths carry over unchanged (`fg_tower/ConvBlockTower_0/Conv_3`
 flax names. A missing sub-tree, or a leaf name not listed above, raises
 here; a sub-tree not asked for is left out (a JAX cold start also holds
 `Gaussian_FC`, DeepFashion's single mapper); a missing or extra module key
-raises where the state is loaded (`load_state_dict(strict=True)`).
+raises where the state is loaded (`load_state_dict(strict=True)`). The
+port's own checkpoints give sub-trees in the same format
+(`train/checkpoint.py:restore_subtrees`).
 """
 from __future__ import annotations
 
@@ -28,7 +30,6 @@ from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
-from torch import nn
 
 STAGE1_SUBTREES = ("Encoder", "ID_AE", "Discriminator",
                    "Discriminator_stats")
@@ -75,12 +76,3 @@ def params_from_flax(tree: Mapping, subtrees: Sequence[str] = STAGE1_SUBTREES
         state[name] = flat
     return state
 
-
-def load_state(encoder: nn.Module, generator: nn.Module, disc: nn.Module,
-               state: Mapping[str, Mapping[str, torch.Tensor]]) -> None:
-    """Copy a `params_from_flax` state into the three modules (strict:
-    missing, extra or mis-shaped keys raise)."""
-    encoder.load_state_dict(state["Encoder"], strict=True)
-    generator.load_state_dict(state["ID_AE"], strict=True)
-    disc.load_state_dict({**state["Discriminator"],
-                          **state["Discriminator_stats"]}, strict=True)

@@ -83,9 +83,12 @@ def gradient_penalty(
 @torch.no_grad()
 def clip_params(params: Iterable[torch.Tensor],
                 bound: float = WGAN_CLIP) -> None:
-    """WGAN weight clipping, in place, over (discriminator) parameters."""
-    for p in params:
-        p.clamp_(-bound, bound)
+    """WGAN weight clipping, in place, over (discriminator) parameters: two
+    multi-tensor passes (`clamp_min_`, `clamp_max_`), the arithmetic of
+    `clamp_(-bound, bound)` without a launch per tensor."""
+    params = list(params)
+    torch._foreach_clamp_min_(params, -bound)
+    torch._foreach_clamp_max_(params, bound)
 
 
 def _sigmoid_ce(logits: torch.Tensor, label: float) -> torch.Tensor:

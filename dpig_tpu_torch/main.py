@@ -1,19 +1,31 @@
 """CLI twin of the JAX package's `main.py` for the ported models.
 
     python -m dpig_tpu_torch.main --model=1 --synthetic_data=true \
-        --max_step=1000 --log_step=50 --model_dir=<dir>
+        --max_step=1000 --log_step=50 --model_dir=<s1>
+    python -m dpig_tpu_torch.main --model=2 --synthetic_data=true \
+        --max_step=1000 --model_dir=<s2>
+    python -m dpig_tpu_torch.main --model=3 --pretrained_path=<s1> \
+        --synthetic_data=true --max_step=1000 --model_dir=<s3>
+    python -m dpig_tpu_torch.main --model=4 --pretrained_path=<s1> \
+        --pretrained_poseAE_path=<s2> --synthetic_data=true \
+        --max_step=1000 --model_dir=<s4>
     python -m dpig_tpu_torch.main --model=12 --is_train=false \
         --synthetic_data=true --test_batch_num=4 --model_dir=<dir>
     python -m dpig_tpu_torch.main --model=11 --sample_app=true \
-        --pose_source=sampled --synthetic_data=true --test_batch_num=4 \
-        --model_dir=<dir>
+        --pose_source=sampled --pretrained_path=<s1> \
+        --pretrained_poseAE_path=<s2> --pretrained_appSample_path=<s3> \
+        --pretrained_poseSample_path=<s4> --synthetic_data=true \
+        --test_batch_num=4 --model_dir=<dir>
 
-Runs Stage-I training (model 1), model-11 sampling, model-12 pose
-transfer, model-13 factor sampling and the `--interpolate_*` factor
-interpolation on the card (`--platform=cpu` for the CPU). As in the JAX
-package, `--model` alone picks training (1-4, 101-104) or testing (11, 12,
-13, 1001, 1002). Every model and option whose path is not ported yet
-raises NotImplementedError naming its ROADMAP item.
+Runs the Market training chain, Stage I (model 1), the pose AE (2), the
+appearance samplers (3) and the pose sampler (4), each stage's checkpoints
+feeding the `--pretrained_*` flags of the next and of the testers, then
+model-11 sampling, model-12 pose transfer, model-13 factor sampling and
+the `--interpolate_*` factor interpolation, on the card (`--platform=cpu`
+for the CPU). As in the JAX package, `--model` alone picks training (1-4,
+101-104) or testing (11, 12, 13, 1001, 1002). Every model and option whose
+path is not ported yet raises NotImplementedError naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -21,6 +33,7 @@ from .apps.common import (batch_to_device, pose_maps_from_batch,
                           select_device, select_parts)
 from .config import Config, get_config
 from .data.synthetic import SyntheticLoader
+from .models.mappers import sample_mapper_noise
 
 TRAIN_MODELS = (1, 2, 3, 4, 101, 102, 103, 104)
 
@@ -35,28 +48,54 @@ def make_loader(cfg: Config):
 
 
 def train_model(cfg: Config):
-    """Model 1 through the Trainer (main.py:51-67); returns the final
+    """Models 1-4 through the Trainer (main.py:43-115); returns the final
     GanState."""
-    if cfg.model in (2, 3, 4):
-        raise NotImplementedError(
-            f"--model={cfg.model}: the pose AE and the Stage-II samplers are "
-            "not ported to dpig_tpu_torch yet (ROADMAP queue item 3)")
-    if cfg.model != 1:
+    if cfg.model not in (1, 2, 3, 4):
         raise NotImplementedError(
             f"--model={cfg.model}: the 256x256 family is not ported to "
             "dpig_tpu_torch yet (ROADMAP queue item 4)")
-    from .apps.stage1_app import Stage1App
+    from .train import checkpoint as ckpt
     from .train.harness import Trainer
 
-    app = Stage1App(cfg, select_device(cfg.platform))
-    trainer = Trainer(cfg, app, make_loader(cfg))
+    device = select_device(cfg.platform)
+    loader = make_loader(cfg)
+    if cfg.model == 1:
+        from .apps.stage1_app import Stage1App
+        app = Stage1App(cfg, device)
+        trainer = Trainer(cfg, app, loader)
+
+        def preview(state, batch, step):
+            jb = batch_to_device(batch, device)
+            bbox, vis = select_parts(jb["part_bbox"], jb["part_vis"],
+                                     cfg.roi_part_num)
+            imgs = app.generate_step(jb["x"], pose_maps_from_batch(jb, cfg),
+                                     jb["mask_r6"], bbox, vis)
+            trainer.preview_with_ssim(imgs.cpu().numpy(), batch["x"], step)
+
+        return trainer.train(preview_fn=preview)
+    if cfg.model == 2:
+        from .apps.stage1_pose import Stage1PoseApp
+        return Trainer(cfg, Stage1PoseApp(cfg, device), loader).train()
+
+    frozen = {}
+    if cfg.model == 4 and cfg.pretrained_poseAE_path:
+        frozen.update(ckpt.restore_subtrees(cfg.pretrained_poseAE_path,
+                                            ["PoseAE"]))
+    if cfg.pretrained_path:
+        frozen.update(ckpt.restore_subtrees(cfg.pretrained_path,
+                                            ["Encoder", "ID_AE"]))
+    if cfg.model == 3:
+        from .apps.stage2_app import Stage2AppApp
+        app = Stage2AppApp(cfg, device, frozen)
+    else:
+        from .apps.stage2_pose import Stage2PoseApp
+        app = Stage2PoseApp(cfg, device, frozen)
+    trainer = Trainer(cfg, app, loader)
 
     def preview(state, batch, step):
-        jb = batch_to_device(batch, app.device)
-        bbox, vis = select_parts(jb["part_bbox"], jb["part_vis"],
-                                 cfg.roi_part_num)
-        imgs = app.generate_step(jb["x"], pose_maps_from_batch(jb, cfg),
-                                 jb["mask_r6"], bbox, vis)
+        noise = sample_mapper_noise(trainer.noise_gen, batch["x"].shape[0],
+                                    app.noise_dim, device)
+        imgs = app.preview_step(batch_to_device(batch, device), noise)
         trainer.preview_with_ssim(imgs.cpu().numpy(), batch["x"], step)
 
     return trainer.train(preview_fn=preview)

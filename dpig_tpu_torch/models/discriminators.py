@@ -1,8 +1,10 @@
-"""DCGAN image discriminator (port of
-`dpig_tpu/models/discriminators.py:23-48`, reference wgan_gp.py:407-440).
+"""Discriminators (port of `dpig_tpu/models/discriminators.py:23-65`).
 
-5x5/2 conv stack, BatchNorm from the second stage on (the 'dcgan' GAN
-mode), LeakyReLU 0.3, a linear logit over the NHWC-flattened features.
+  * DCGANDiscriminator (reference wgan_gp.py:407-440): 5x5/2 conv stack,
+    BatchNorm from the second stage on (the 'dcgan' GAN mode), LeakyReLU
+    0.3, a linear logit over the NHWC-flattened features.
+  * FCDiscriminator (wgan_gp.py:399-405): the LeakyReLU MLP critic of the
+    Stage-II samplers, in embedding space.
 """
 from __future__ import annotations
 
@@ -44,6 +46,25 @@ class DCGANDiscriminator(nn.Module):
                                                             update_stats)
             x = leaky_relu(x)
         return self.logit(flatten_nhwc(x)).reshape(-1)
+
+
+class FCDiscriminator(nn.Module):
+    """Dense `input` -> leaky, `h0`..`h{n-1}` -> leaky, `out` -> [B]; the
+    flax names, normal(0.02) weights."""
+
+    def __init__(self, in_dim: int, fc_dim: int = 512, n_layers: int = 3):
+        super().__init__()
+        self.n_layers = n_layers
+        self.input = Dense(in_dim, fc_dim, init=D_INIT)
+        for i in range(n_layers):
+            self.add_module(f"h{i}", Dense(fc_dim, fc_dim, init=D_INIT))
+        self.out = Dense(fc_dim, 1, init=D_INIT)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = leaky_relu(self.input(x))
+        for i in range(self.n_layers):
+            x = leaky_relu(getattr(self, f"h{i}")(x))
+        return self.out(x).reshape(-1)
 
 
 def get_discriminator(arch: str, img_h: int, img_w: int,

@@ -22,8 +22,13 @@ def sample_mapper_noise(gen: torch.Generator, batch: int, dim: int,
                         stddev: float = GAUSSIAN_STDDEV) -> torch.Tensor:
     """[batch, dim] normal noise * stddev, drawn on the generator's device
     (the CPU for a CPU generator) and copied to `device`, so the card and
-    the CPU get the same numbers from the same seed."""
-    return (torch.randn((batch, dim), generator=gen) * stddev).to(device)
+    the CPU get the same numbers from the same seed. The copy to the card
+    is one asynchronous copy from pinned memory, so it does not wait for
+    the work already queued on the stream."""
+    noise = torch.randn((batch, dim), generator=gen) * stddev
+    if device.type == "cuda":
+        return noise.pin_memory().to(device, non_blocking=True)
+    return noise.to(device)
 
 
 class GaussianMapper(nn.Module):

@@ -3,10 +3,11 @@ train() loop, trainer.py:326-366): fixed-batch previews, periodic metrics
 logging, periodic checkpoints, auto-resume. The LR schedule lives in the
 optimizers (`train/state.py`).
 
-Observability: metrics go to `<model_dir>/metrics.jsonl` and stdout,
-previews to PNG grids with the mean SSIM in the file name
-(trainer.py:522-524). Not ported yet: TensorBoard events and the device
-mesh (one card per run).
+Observability: metrics go to `<model_dir>/metrics.jsonl` and stdout, the
+`hist/` embedding arrays of the Stage-II samplers as their mean and
+standard deviation (harness.py:71-82), previews to PNG grids with the mean
+SSIM in the file name (trainer.py:522-524). Not ported yet: TensorBoard
+events and the device mesh (one card per run).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import time
 from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 from ..apps.common import batch_to_device
 from ..config import Config
@@ -28,13 +30,18 @@ from .state import GanState
 
 class Trainer:
     """Drives an app exposing `device`, `init_state()` and
-    `train_step(state, batch)` on the loader's numpy batches."""
+    `train_step(state, batch)` on the loader's numpy batches. An app with
+    `batches_per_step` n > 1 gets a tuple of n batches per step; an app
+    with `step_noise(gen, b)` (the Stage-II samplers) also gets each step's
+    noise, drawn from `noise_gen`, one CPU generator seeded with
+    `cfg.random_seed` (the previews draw from it too)."""
 
     def __init__(self, cfg: Config, app: Any,
                  loader: Iterator[Dict[str, np.ndarray]]):
         self.cfg = cfg
         self.app = app
         self.loader = loader
+        self.noise_gen = torch.Generator().manual_seed(cfg.random_seed)
         os.makedirs(cfg.model_dir, exist_ok=True)
         self.metrics_path = os.path.join(cfg.model_dir, "metrics.jsonl")
 
@@ -53,8 +60,15 @@ class Trainer:
         return state
 
     # --------------------------------------------------------------- log
-    def log_metrics(self, step: int, metrics: Dict[str, float]) -> None:
+    def log_metrics(self, step: int, metrics: Dict[str, float],
+                    hists: Optional[Dict[str, np.ndarray]] = None) -> None:
+        """Scalars, and each array of `hists` as `<name>_mean` /
+        `<name>_std` (float64, as the JAX package)."""
         rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
+        for name, arr in (hists or {}).items():
+            flat = np.asarray(arr, np.float64).ravel()
+            rec[f"{name}_mean"] = float(flat.mean())
+            rec[f"{name}_std"] = float(flat.std())
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
         print(f"[{step}] " + " ".join(f"{k}={v:.4f}" for k, v in rec.items()
@@ -74,20 +88,23 @@ class Trainer:
         t_last = time.time()
         last_logged = start - 1  # the first interval covers its own steps
         for step in range(start, cfg.max_step):
-            batch = batch_to_device(next(self.loader), self.app.device)
-            metrics = self.app.train_step(state, batch)
+            metrics = self.step(state)
 
             if step == 0 or step % cfg.log_step == cfg.log_step - 1:
                 # Host floats first: the steps are queued on the card, and
                 # reading the losses waits for them, so the rate below
-                # covers finished steps.
-                vals = {k: float(v) for k, v in metrics.items()}
+                # covers finished steps. It counts batch_size images per
+                # step, as the JAX package does, whatever the step reads.
+                vals = {k: float(v) for k, v in metrics.items()
+                        if not k.startswith("hist/")}
+                hists = {k[5:]: v.cpu().numpy() for k, v in metrics.items()
+                         if k.startswith("hist/")}
                 now = time.time()
                 ips = (cfg.batch_size * (step - last_logged)
                        / max(now - t_last, 1e-9))
                 t_last = now
                 last_logged = step
-                self.log_metrics(step, {**vals, "imgs_per_sec": ips})
+                self.log_metrics(step, {**vals, "imgs_per_sec": ips}, hists)
 
             every = cfg.log_step * 3
             if preview_fn is not None and (step == 0
@@ -99,6 +116,19 @@ class Trainer:
 
         ckpt.save_checkpoint(cfg.model_dir, cfg.max_step, state)
         return state
+
+    def step(self, state: GanState) -> Dict[str, Any]:
+        """One train step on the next loader batch (a tuple of
+        `batches_per_step` batches, and the step's noise, where the app
+        takes them), copied to the app's device."""
+        app = self.app
+        n = getattr(app, "batches_per_step", 1)
+        batch = tuple(batch_to_device(next(self.loader), app.device)
+                      for _ in range(n))
+        args = (batch if n > 1 else batch[0],)
+        if hasattr(app, "step_noise"):
+            args += (app.step_noise(self.noise_gen, self.cfg.batch_size),)
+        return app.train_step(state, *args)
 
     # ------------------------------------------------------- previews
     def _save_fixed_previews(self, batch: Dict[str, np.ndarray]) -> None:

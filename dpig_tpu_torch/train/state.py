@@ -19,7 +19,7 @@ other on identical gradients. Their state starts at zero, as optax's does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Mapping, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -159,31 +159,43 @@ def named_params(nets: Mapping[str, nn.Module]) -> Dict[str, torch.Tensor]:
 
 @dataclasses.dataclass
 class GanState:
-    """Generator/discriminator nets, their optimizers and the step count
-    (the counterpart of the JAX package's `GanState`).
+    """Generator/discriminator nets, their optimizers, the frozen nets and
+    the step count (the counterpart of the JAX package's `GanState`).
 
-    `g_nets` / `d_nets` name the sub-nets as the JAX package names its
-    param sub-trees ('Encoder', 'ID_AE' / 'Discriminator'); the nets hold
-    the parameters and the D's BatchNorm running statistics (its
-    `d_stats`), the optimizers hold the moments.
+    `g_nets` / `d_nets` / `frozen_nets` name the sub-nets as the JAX
+    package names its param sub-trees ('Encoder', 'ID_AE' /
+    'Discriminator' / the Stage-I nets a Stage-II sampler trains against);
+    the nets hold the parameters and the D's BatchNorm running statistics
+    (its `d_stats`), the optimizers hold the moments. The pose AE (model 2)
+    has no D (`d_nets` and `d_opt` None). Frozen nets take no gradient and
+    are in no optimizer.
     """
     g_nets: Dict[str, nn.Module]
-    d_nets: Dict[str, nn.Module]
+    d_nets: Optional[Dict[str, nn.Module]]
     g_opt: _Optimizer
-    d_opt: _Optimizer
+    d_opt: Optional[_Optimizer]
+    frozen_nets: Dict[str, nn.Module] = dataclasses.field(default_factory=dict)
     step: int = 0
 
     @classmethod
-    def create(cls, *, g_nets: Mapping[str, nn.Module],
-               d_nets: Mapping[str, nn.Module], mode: str, g_lr: float,
-               d_lr: float, lr_update_step: int, step: int = 0) -> "GanState":
-        g_nets, d_nets = dict(g_nets), dict(d_nets)
+    def create(cls, *, g_nets: Mapping[str, nn.Module], mode: str,
+               g_lr: float, lr_update_step: int,
+               d_nets: Optional[Mapping[str, nn.Module]] = None,
+               d_lr: Optional[float] = None,
+               frozen_nets: Optional[Mapping[str, nn.Module]] = None,
+               step: int = 0) -> "GanState":
+        g_nets = dict(g_nets)
+        d_nets = dict(d_nets) if d_nets is not None else None
+        frozen_nets = dict(frozen_nets or {})
+        for m in frozen_nets.values():
+            m.requires_grad_(False)
+        d_opt = (make_optimizer(mode, named_params(d_nets), d_lr,
+                                lr_update_step)
+                 if d_nets is not None else None)
         return cls(g_nets=g_nets, d_nets=d_nets,
                    g_opt=make_optimizer(mode, named_params(g_nets), g_lr,
                                         lr_update_step),
-                   d_opt=make_optimizer(mode, named_params(d_nets), d_lr,
-                                        lr_update_step),
-                   step=step)
+                   d_opt=d_opt, frozen_nets=frozen_nets, step=step)
 
     @property
     def g_params(self) -> List[torch.Tensor]:
@@ -191,4 +203,4 @@ class GanState:
 
     @property
     def d_params(self) -> List[torch.Tensor]:
-        return list(self.d_opt.params.values())
+        return list(self.d_opt.params.values()) if self.d_opt else []

@@ -1,6 +1,7 @@
-"""Where a model-12 batch, a model-11 sampling batch and a model-1 train
-step spend their time on the card (the port's counterpart of
-`dpig_tpu/utils/profiling.py`, for the ported paths).
+"""Where a model-12 batch, a model-11 sampling batch, a model-1 train step
+and the model-3 / model-4 Stage-II train steps spend their time on the
+card (the port's counterpart of `dpig_tpu/utils/profiling.py`, for the
+ported paths).
 
     python -m dpig_tpu_torch.utils.profiling
 
@@ -36,7 +37,17 @@ D step), cold start, float32, and prints eight breakdowns:
           of each; host ms per step;
   train trace  torch.profiler over one `train_step`: wall and busy share,
           the top kernels, and the device time of the ROI crop's backward
-          (`aten::_index_put_impl_`, an accumulating index_put_).
+          (`aten::_index_put_impl_`, an accumulating index_put_);
+  stage2  for model 3 (`Stage2AppApp`, the default `fresh` batches, cold
+          start) and model 4 (`Stage2PoseApp`), batch 16: device ms of each
+          phase of `train_step` (CUDA events at its marks, the critic
+          phases summed over the CRITIC_ITERS iterations, median over REPS
+          after a warm-up): real embeddings (the frozen encoder on 1+5
+          batches), G forward and backward, G update, critic forward and
+          backward, D update, clip; host ms per step as the Trainer runs
+          it (`Trainer.step`: copy in, noise, step, synchronized); and
+          torch.profiler over one such step: busy share, top kernels and
+          the host-to-device copies it made.
 
 The last line is one JSON object with every number printed. Needs a card.
 """
@@ -54,12 +65,15 @@ import torch
 
 from ..apps.common import batch_to_device, pose_maps_from_batch
 from ..apps.stage1_app import TRAIN_PHASES, Stage1App
+from ..apps.stage2_app import STAGE2_PHASES, Stage2AppApp
+from ..apps.stage2_pose import Stage2PoseApp
 from ..apps.testers import (ConditionalTransferTester, FullSamplingTester,
                              _save_batch_pngs)
 from ..config import Config
 from ..data.synthetic import SyntheticLoader
 from ..eval.metrics import ssim_images
 from ..ops.pose import render_pose_maps
+from ..train.harness import Trainer
 from .viz import pose_to_gray
 
 STAGES = ("encode", "pose_raster", "generate", "disc_score")
@@ -275,6 +289,58 @@ def train_step_ms(app: Stage1App, state, loader, reps: int) -> list:
     return times[1:]
 
 
+def stage2_phase_ms(app, state, batch, noise, reps: int) -> dict:
+    """Median device ms of each phase of a Stage-II train step (CUDA
+    events; the critic phases summed over their iterations)."""
+    rows = []
+    for _ in range(reps + 1):  # the first is a warm-up
+        events, names = [torch.cuda.Event(enable_timing=True)], []
+        events[0].record()
+
+        def mark(phase):
+            names.append(phase)
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+        app.train_step(state, batch, noise, mark)
+        torch.cuda.synchronize()
+        row = defaultdict(float)
+        for name, a, b in zip(names, events, events[1:]):
+            row[name] += a.elapsed_time(b)
+        rows.append(row)
+    return {p: statistics.median(r[p] for r in rows[1:])
+            for p in STAGE2_PHASES}
+
+
+def trainer_step_ms(trainer: Trainer, state, reps: int) -> list:
+    """Host ms of `reps` Trainer steps (copy in, noise, step), each
+    synchronized, after one warm-up step."""
+    times = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        trainer.step(state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times[1:]
+
+
+def stage2_profile(cls, cfg: Config, reps: int) -> dict:
+    """Phase ms, host ms per step and a traced step of the Stage-II app
+    `cls` on the card, cold start."""
+    app = cls(cfg, torch.device("cuda"))
+    state = app.init_state()
+    trainer = Trainer(cfg, app, SyntheticLoader(cfg.batch_size, cfg.img_H,
+                                                cfg.img_W))
+    host = tuple(next(trainer.loader) for _ in range(app.batches_per_step))
+    batch = tuple(batch_to_device(b, app.device) for b in host)
+    noise = app.step_noise(trainer.noise_gen, cfg.batch_size)
+    phases = stage2_phase_ms(app, state, batch if len(batch) > 1
+                             else batch[0], noise, reps)
+    step_ms = trainer_step_ms(trainer, state, reps)
+    return {"phases_ms": phases, "step_ms": step_ms,
+            "trace": trace(lambda: trainer.step(state))}
+
+
 def _device_time_us(evt) -> float:
     """Device time of a key_averages() row (`cuda_time_total` before
     PyTorch 2.4)."""
@@ -283,40 +349,29 @@ def _device_time_us(evt) -> float:
     return evt.cuda_time_total
 
 
-def trace_train_step(app: Stage1App, state, batch, top: int = 12) -> dict:
-    """torch.profiler over one train_step: busy share, kernel times and
-    the ROI crop backward's device time."""
+def trace(fn, top: int = 12, crop: bool = False) -> dict:
+    """torch.profiler over `fn()`, synchronized: busy share, kernel times
+    and, with `crop`, the ROI crop backward's device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        app.train_step(state, batch)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     out = _device_summary(prof, wall_us, top)
-    crop = [e for e in prof.key_averages() if e.key == CROP_BACKWARD_OP]
-    out["crop_backward_ms"] = sum(_device_time_us(e) for e in crop) / 1e3
-    out["crop_backward_calls"] = sum(e.count for e in crop)
+    if crop:
+        ops = [e for e in prof.key_averages() if e.key == CROP_BACKWARD_OP]
+        out["crop_backward_ms"] = sum(_device_time_us(e) for e in ops) / 1e3
+        out["crop_backward_calls"] = sum(e.count for e in ops)
     return out
 
 
-def trace_one_batch(tester, loader, top: int = 12, **run_kwargs) -> dict:
-    """torch.profiler over one run() batch: busy share and kernel times."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tester.run(loader, test_batch_num=1, **run_kwargs)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    return _device_summary(prof, wall_us, top)
-
-
 def _device_summary(prof, wall_us: float, top: int) -> dict:
-    """Busy share of the wall time (union of device intervals) and device
-    time by kernel name."""
+    """Busy share of the wall time (union of device intervals), device
+    time by kernel name, and the host-to-device copies (`Memcpy HtoD`
+    events, by kind)."""
     spans, by_name, counts = [], defaultdict(float), defaultdict(int)
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -336,7 +391,8 @@ def _device_summary(prof, wall_us: float, top: int) -> dict:
             "top": [{"name": n[:90], "ms": by_name[n] / 1e3,
                      "count": counts[n]} for n in kernels],
             "pose_raster_us": [by_name[n] / counts[n] for n in by_name
-                               if "pose_raster" in n]}
+                               if "pose_raster" in n],
+            "h2d_copies": {n: counts[n] for n in by_name if "HtoD" in n}}
 
 
 def main() -> int:
@@ -357,7 +413,7 @@ def main() -> int:
             os.makedirs(d)
         loop = loop_ms(tester, loader, dirs, REPS)
         tester.run(loader, test_batch_num=1)  # warm run() before tracing
-        trace = trace_one_batch(tester, loader)
+        trace_12 = trace(lambda: tester.run(loader, test_batch_num=1))
         del tester
 
         sampler = FullSamplingTester(Config(platform="", model_dir=tmp,
@@ -367,8 +423,8 @@ def main() -> int:
         s_stages = sampling_stage_ms(sampler, jb, noise, REPS)
         s_loop = sampling_loop_ms(sampler, loader, REPS)
         sampler.run(loader, test_batch_num=1, pose_source=SAMPLING_SOURCE)
-        s_trace = trace_one_batch(sampler, loader,
-                                  pose_source=SAMPLING_SOURCE)
+        s_trace = trace(lambda: sampler.run(loader, test_batch_num=1,
+                                            pose_source=SAMPLING_SOURCE))
         del sampler
 
         app = Stage1App(cfg, torch.device("cuda"))
@@ -377,7 +433,12 @@ def main() -> int:
         train_flops = train_phase_flops(app, state, tb)
         train_ms = train_phase_ms(app, state, tb, REPS)
         step_ms = train_step_ms(app, state, loader, REPS)
-        train_trace = trace_train_step(app, state, tb)
+        train_trace = trace(lambda: app.train_step(state, tb), crop=True)
+        del app, state
+        stage2 = {m: stage2_profile(cls, Config(platform="",
+                                                model_dir=f"{tmp}/m{m}"),
+                                    REPS)
+                  for m, cls in ((3, Stage2AppApp), (4, Stage2PoseApp))}
     name = torch.cuda.get_device_name(0)
     print(f"[profile] {name}, model 12 {cfg.img_H}x{cfg.img_W} hidden "
           f"{cfg.conv_hidden_num} z {cfg.z_num} batch {cfg.batch_size}")
@@ -390,11 +451,12 @@ def main() -> int:
     print("[loop] host ms: " + ", ".join(f"{k} {v:.2f}" for k, v in
                                          loop.items())
           + f" | sum {sum(loop.values()):.2f}")
-    print(f"[trace] one run() batch: wall {trace['wall_ms']:.2f} ms, device "
-          f"busy {trace['device_busy_ms']:.2f} ms (share "
-          f"{trace['device_busy_share']:.3f}), {trace['device_events']} "
-          f"device events; pose_raster kernel us {trace['pose_raster_us']}")
-    for row in trace["top"]:
+    print(f"[trace] one run() batch: wall {trace_12['wall_ms']:.2f} ms, "
+          f"device busy {trace_12['device_busy_ms']:.2f} ms (share "
+          f"{trace_12['device_busy_share']:.3f}), "
+          f"{trace_12['device_events']} device events; pose_raster kernel "
+          f"us {trace_12['pose_raster_us']}")
+    for row in trace_12["top"]:
         print(f"[trace]   {row['ms']:9.3f} ms  x{row['count']:<4d} "
               f"{row['name']}")
     print(f"[sampling] model 11, sample_app, pose_source {SAMPLING_SOURCE}, "
@@ -434,14 +496,33 @@ def main() -> int:
     for row in train_trace["top"]:
         print(f"[train trace]   {row['ms']:9.3f} ms  x{row['count']:<4d} "
               f"{row['name']}")
+    for m, prof in stage2.items():
+        ph, tr = prof["phases_ms"], prof["trace"]
+        print(f"[stage2] model {m}, batch {cfg.batch_size}, critic_batch_mode "
+              f"{cfg.critic_batch_mode}: device ms per phase: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in ph.items())
+              + f" | sum {sum(ph.values()):.3f}")
+        print(f"[stage2] model {m} host ms per Trainer step (copy in, noise, "
+              f"step, sync; {REPS} steps): median "
+              f"{statistics.median(prof['step_ms']):.2f}, all "
+              f"{[round(t, 2) for t in prof['step_ms']]}")
+        print(f"[stage2 trace] model {m}, one Trainer step: wall "
+              f"{tr['wall_ms']:.2f} ms, device busy {tr['device_busy_ms']:.2f}"
+              f" ms (share {tr['device_busy_share']:.3f}), "
+              f"{tr['device_events']} device events; host-to-device copies "
+              f"{tr['h2d_copies']}")
+        for row in tr["top"]:
+            print(f"[stage2 trace]   {row['ms']:9.3f} ms  x{row['count']:<4d} "
+                  f"{row['name']}")
     print(json.dumps({"device": name, "batch_size": cfg.batch_size,
                       "stages_ms": stages, "stages_flops": flops,
-                      "loop_ms": loop, "trace": trace,
+                      "loop_ms": loop, "trace": trace_12,
                       "sampling_stages_ms": s_stages,
                       "sampling_loop_ms": s_loop, "sampling_trace": s_trace,
                       "train_phase_ms": train_ms,
                       "train_phase_flops": train_flops,
-                      "train_step_ms": step_ms, "train_trace": train_trace}))
+                      "train_step_ms": step_ms, "train_trace": train_trace,
+                      "stage2": stage2}))
     return 0
 
 

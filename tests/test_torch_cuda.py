@@ -7,7 +7,9 @@ per call; no route from a CUDA tensor to the plain version; bad inputs
 refused before launch. And the model-12 tester on the card runs float32
 with PyTorch's TF32 flags on. Training: one small-config train step on the
 card against the CPU (both D-step variants), the optimizers on identical
-gradients, and BatchNorm's running-statistic updates.
+gradients, and BatchNorm's running-statistic updates. Stage II: one
+model-3 and one model-4 step on the card against the CPU, the pose kernel
+on a model-4 preview, and the step noise in one copy.
 
 Marked `cuda` and skipped without a card. On a machine with one (JAX is not
 needed there, hence no conftest):
@@ -445,3 +447,83 @@ def test_kernel_on_decoded_rcv_matches_plain(card, tmp_path):
                                                             radius, True))
     assert torch.equal(preview, pose.render_pose_maps_plain(rcv, 128, 64, 18,
                                                             0, True))
+
+
+# Card vs CPU limit on every error of one small-config Stage-II step (keys
+# of `step_errors`), the card's critic iterations started where the CPU's
+# were; TF32 flags on (the step runs float32 whatever they say). Readings
+# on an NVIDIA H100 80GB HBM3 (700 W): at most 6.0e-7 (model 3) and 5.4e-7
+# (model 4); chip_smoke.py's full-width control past the float32 guard
+# reads at least 8.0e-5.
+STAGE2_STEP_TOL = 1e-5
+
+
+@pytest.mark.parametrize("model", [3, 4])
+def test_stage2_step_on_the_card_matches_the_cpu(card, tf32_on, tmp_path,
+                                                 model):
+    """One `fresh` step of the same weights, batches and noise: the ROI
+    encoder runs 6 times on the card for model 3 (0 for model 4), the
+    pose kernel never, every critic parameter ends within +-0.01."""
+    from dpig_tpu_torch.apps.stage2_app import Stage2AppApp
+    from dpig_tpu_torch.apps.stage2_pose import Stage2PoseApp
+    cls = Stage2AppApp if model == 3 else Stage2PoseApp
+    loader = SyntheticLoader(4, 32, 16, seed=BATCH_SEED)
+    host = tuple(next(loader) for _ in range(6))
+    cpu_app = cls(Config(platform="cpu", model_dir=str(tmp_path), **SMALL),
+                  torch.device("cpu"))
+    noise = cpu_app.step_noise(torch.Generator().manual_seed(NOISE_SEED), 4)
+    ref = recorded_train_step(cpu_app, host, noise=noise)
+    app = cls(Config(platform="", model_dir=str(tmp_path), **SMALL), card)
+    calls = []
+    app.stage1.encoder.register_forward_hook(lambda *_: calls.append(1))
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    before = pose_raster.launches
+    got = recorded_train_step(app, host, noise=noise,
+                              g_updated=ref.g_updated,
+                              d_clipped=ref.d_clipped)
+    assert pose_raster.launches == before
+    assert len(calls) == (6 if model == 3 else 0)
+    errs = step_errors(ref, got)
+    print(f"model {model}, card vs CPU: {errs}")
+    assert all(v <= STAGE2_STEP_TOL for v in errs.values()), errs
+    assert all(float(p.detach().abs().max()) <= 0.01
+               for p in got.state.d_params)
+    assert got.state.step == 1
+
+
+def test_pose_kernel_on_a_model4_preview(card, tmp_path):
+    """The sampled poses of a model-4 preview, rendered by the kernel (one
+    launch), bit-equal to the plain version; the preview launches once."""
+    from dpig_tpu_torch.apps.stage2_pose import Stage2PoseApp
+    app = Stage2PoseApp(Config(platform="", model_dir=str(tmp_path),
+                               conv_hidden_num=16, z_num=16), card)
+    noise = app.step_noise(torch.Generator().manual_seed(NOISE_SEED), 16)[0]
+    before = pose_raster.launches
+    rcv, maps = app.sample_poses(noise)
+    assert pose_raster.launches == before + 1
+    assert rcv.shape == (16, 18, 3) and maps.shape == (16, 128, 64, 18)
+    assert torch.equal(maps, pose.render_pose_maps_plain(rcv, 128, 64, 18, 4,
+                                                         True))
+    batch = batch_to_device(next(SyntheticLoader(16, 128, 64, seed=1)), card)
+    imgs = app.preview_step(batch, noise)
+    assert pose_raster.launches == before + 2
+    assert imgs.shape == (16, 128, 64, 3) and bool(torch.isfinite(imgs).all())
+
+
+def test_step_noise_is_one_copy(card, tmp_path):
+    """A Stage-II step's noise (G draw and five critic draws) reaches the
+    card in one host-to-device copy, from pinned memory, with the numbers
+    the CPU draws from the same seed."""
+    from torch.profiler import ProfilerActivity, profile
+    from dpig_tpu_torch.apps.stage2_app import Stage2AppApp
+    app = Stage2AppApp(Config(platform="", model_dir=str(tmp_path), **SMALL),
+                       card)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        noise = app.step_noise(torch.Generator().manual_seed(3), 4)
+        torch.cuda.synchronize()
+    copies = [e.name for e in prof.events() if "HtoD" in e.name]
+    assert len(copies) == 1 and "Pinned" in copies[0], copies
+    want = torch.randn((24, 352), generator=torch.Generator().manual_seed(3))
+    assert torch.equal(noise.cpu(), (want * 0.2).view(6, 4, 352))

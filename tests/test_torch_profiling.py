@@ -1,11 +1,14 @@
 """The port's profiler: its FLOP count per stage of the model-12
 transfer step, its stage-by-stage model-11 step, its phase-by-phase train
-step and its FLOPs, and its refusal to measure without a card."""
+steps (model 1 with its FLOPs, models 3 and 4), and its refusal to measure
+without a card."""
 import pytest
 import torch
 
 from dpig_tpu_torch.apps.common import batch_to_device
 from dpig_tpu_torch.apps.stage1_app import Stage1App
+from dpig_tpu_torch.apps.stage2_app import STAGE2_PHASES, Stage2AppApp
+from dpig_tpu_torch.apps.stage2_pose import Stage2PoseApp
 from dpig_tpu_torch.apps.testers import (ConditionalTransferTester,
                                          FullSamplingTester)
 from dpig_tpu_torch.config import Config
@@ -97,6 +100,34 @@ def test_sampling_stages_mark_each_stage_and_compute_the_step(tmp_path,
                                              profiling.SAMPLING_SOURCE)
     assert torch.equal(torch.clamp((g_raw + 1) * 127.5, 0, 255), g)
     assert torch.equal(score, score_step)
+
+
+@pytest.mark.parametrize("cls", [Stage2AppApp, Stage2PoseApp])
+def test_stage2_step_marks_each_phase_and_the_marks_change_nothing(tmp_path,
+                                                                   cls):
+    """The Stage-II step marks the real embeddings, the G phases, then the
+    three critic phases once per critic iteration, and computes bit for
+    bit on the CPU what it computes without a mark."""
+    cfg = Config(platform="cpu", model_dir=str(tmp_path), **SMALL)
+    loader = SyntheticLoader(4, 32, 16, seed=1)
+    host = [next(loader) for _ in range(6)]
+    results = []
+    for marks in (None, []):
+        app = cls(cfg, torch.device("cpu"))
+        state = app.init_state()
+        noise = app.step_noise(torch.Generator().manual_seed(2), 4)
+        batches = tuple(batch_to_device(b, app.device) for b in host)
+        metrics = app.train_step(state, batches, noise,
+                                 None if marks is None else marks.append)
+        results.append((metrics, ckpt.state_tree(state)))
+    assert marks == list(STAGE2_PHASES[:3]) + list(STAGE2_PHASES[3:]) * 5
+    (m0, s0), (m1, s1) = results
+    for k, v in m0.items():
+        assert torch.equal(v, m1[k]), k
+    for key in ("g_params", "d_params"):
+        for net, tensors in s0[key].items():
+            for n, t in tensors.items():
+                assert torch.equal(t, s1[key][net][n]), (key, net, n)
 
 
 def test_profiling_refuses_to_run_without_a_card():

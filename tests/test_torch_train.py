@@ -44,7 +44,7 @@ from dpig_tpu_torch.models.layers import BatchNorm
 from dpig_tpu_torch.ops.image import upscale_nn
 from dpig_tpu_torch.train import checkpoint as ckpt
 from dpig_tpu_torch.train.harness import Trainer
-from dpig_tpu_torch.train.parity import SUBNETS, recorded_train_step
+from dpig_tpu_torch.train.parity import recorded_train_step
 from dpig_tpu_torch.train.state import halving_schedule, make_optimizer
 
 torch.set_num_threads(1)
@@ -54,6 +54,7 @@ CPU = torch.device("cpu")
 METRICS = ("g_loss", "g_loss_only", "d_loss", "L1Loss", "PoseMaskLoss")
 LR = Config().g_lr  # 8e-5, both nets
 BN_FED_BIASES = {f"Discriminator/Conv_{i}.bias" for i in (1, 2, 3)}
+SUBNETS = ("Encoder", "ID_AE", "Discriminator")
 
 
 def _np_tree(tree):
@@ -438,8 +439,9 @@ def test_cli_refuses_to_train_without_a_card(tmp_path):
     assert not os.listdir(tmp_path)  # nothing written before the refusal
 
 
-@pytest.mark.parametrize("model,item", [(2, "queue item 3"), (3, "item 3"),
-                                        (4, "item 3"), (101, "item 4")])
+@pytest.mark.parametrize("model,item", [(102, "queue item 4"),
+                                        (103, "item 4"), (104, "item 4"),
+                                        (101, "item 4")])
 def test_unported_training_models_raise(tmp_path, model, item):
     with pytest.raises(NotImplementedError, match=item):
         port_main.train_model(_small_cfg(tmp_path, model=model))

@@ -116,14 +116,32 @@ def test_preview_ssim_and_pose_gray_match_jax(rng):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="orbax"):
+    """An orbax checkpoint of the JAX package raises (queue item 5); a port
+    checkpoint loads, and with every sub-tree it needs and no D the tester
+    scores zeros, as JAX does."""
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.train import checkpoint as ckpt
+    (tmp_path / "orbax").mkdir()
+    (tmp_path / "orbax" / "_CHECKPOINT_METADATA").write_text("{}")
+    with pytest.raises(NotImplementedError, match="orbax.*queue item 5"):
         testers.ConditionalTransferTester(
-            small_cfg(tmp_path, pretrained_path=str(tmp_path)))
+            small_cfg(tmp_path, pretrained_path=str(tmp_path / "orbax")))
+    app = Stage1App(small_cfg(tmp_path, random_seed=5), torch.device("cpu"))
+    ckpt.save_checkpoint(str(tmp_path / "s1"), 0, app.init_state())
+    t = testers.ConditionalTransferTester(
+        small_cfg(tmp_path, pretrained_path=str(tmp_path / "s1")))
+    for a, b in ((t.stage1.encoder, app.encoder),
+                 (t.stage1.generator, app.generator)):
+        for (n, p), q in zip(a.state_dict().items(), b.state_dict().values()):
+            assert torch.equal(p, q), n
+    _, _, score = t.transfer_step(batch_to_device(
+        next(SyntheticLoader(4, 32, 16, seed=1)), t.device))
+    assert t.stage1.disc is None and not score.any()
     with pytest.raises(NotImplementedError, match="int8"):
         testers.ConditionalTransferTester(
             small_cfg(tmp_path, inference_dtype="int8"))
     from dpig_tpu_torch import main
     with pytest.raises(NotImplementedError, match="model=1002"):
         main.test_model(small_cfg(tmp_path, model=1002))
-    with pytest.raises(NotImplementedError, match="model=2"):
-        main.train_model(small_cfg(tmp_path, model=2))
+    with pytest.raises(NotImplementedError, match="model=102"):
+        main.train_model(small_cfg(tmp_path, model=102))
