@@ -100,6 +100,20 @@ Phases, each printing one line; any failure exits non-zero:
               and with the TF32 flags on; the step past its float32 guard
               with TF32 on must exceed it on each of them.
 
+ 12. data     real data on the card: a Market-format tfrecord dataset at
+              128x64 written by the port's `build_pair_example` and writer
+              (DATA_TRAIN_PAIRS train, DATA_TEST_PAIRS test pairs, PIL
+              JPEGs, pn_pairs_num_*.p); every record read back by the
+              native scanner equal to the plain reader's, CRCs verified,
+              and parsed bit-equal by `tfr_parse` and the plain decoder;
+              the test split's batches identical in order with 0 workers,
+              LOADER_WORKERS threads and 2 processes; the loader's
+              samples/s on this host; model 12 through the CLI on the test
+              split (2 batches, 2 pose launches each; asked for 3, it
+              raises StopIteration after the same 2); model 1 (6 steps)
+              and model 3 (`fresh`, on phase 6's model-1 dir, 4 steps) on
+              the train split, per-step ms and pose launches.
+
 The line before the last is {"kernels": [...]}, with the pose kernel's
 launches on each path; the last line is {"ok": true, "device": {...}}.
 """
@@ -188,6 +202,8 @@ STAGE2_STEPS, STAGE2_LOG_STEP, CHAIN_BATCHES = 4, 1, 2
 # 1e-5, at least 8x from each reading, and the control must exceed it on
 # every key.
 STAGE2_PARITY_TOL = 1e-5
+DATA_TRAIN_PAIRS, DATA_TEST_PAIRS = 96, 40
+LOADER_WORKERS, LOADER_RATE_BATCHES = 4, 12
 
 
 def _graph_ms(fn, reps: int = 25, inner: int = 20) -> float:
@@ -236,13 +252,27 @@ def phase_device():
 
 
 def phase_build():
+    """The CUDA kernel (nvcc) and the host tfrecord parser (g++), built at
+    once, each by its own compiler process."""
+    from concurrent.futures import ThreadPoolExecutor
     from dpig_tpu_torch.kernels import _build
+    sources = {"pose_raster": ("pose_raster.cu", _build.load),
+               "tfrecord_scanner": ("tfrecord_scanner.cc", _build.load_host)}
+
+    def build(lib):
+        source, load = sources[lib]
+        fresh = not os.path.exists(_build.library_path(lib, source))
+        t0 = time.perf_counter()
+        load(lib)
+        return fresh, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = dict(zip(sources, pool.map(build, sources)))
+    for lib, (fresh, secs) in built.items():
+        print(f"[build] {sources[lib][0]}: "
+              f"{'built' if fresh else 'cached library'} and loaded in "
+              f"{secs:.2f} s", flush=True)
     name = "pose_raster"
-    fresh = not os.path.exists(_build.library_path(name))
-    t0 = time.perf_counter()
-    _build.load(name)
-    print(f"[build] {name}: {'built' if fresh else 'cached library'} and "
-          f"loaded in {time.perf_counter() - t0:.2f} s", flush=True)
     ptxas = [ln.split(":", 1)[-1].strip() for ln in
              _build.build_log(name).splitlines()
              if "Used" in ln or "spill" in ln]
@@ -1131,6 +1161,206 @@ def phase_stage2_parity(model_dir):
         raise AssertionError("; ".join(failures))
 
 
+def _same_batches(got, want) -> bool:
+    return len(got) == len(want) and all(
+        set(g) == set(w) and all(g[k].dtype == w[k].dtype and
+                                 g[k].tobytes() == w[k].tobytes() for k in w)
+        for g, w in zip(got, want))
+
+
+def _drain(loader):
+    out = []
+    with loader:
+        try:
+            while True:
+                out.append(next(loader))
+        except StopIteration:
+            return out
+
+
+def _loader_rate(make, batches: int) -> float:
+    """Host samples/s of the loader `make()` builds, over `batches` batches
+    after one."""
+    with make() as loader:
+        next(loader)
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next(loader)
+        return batches * loader.batch_size / (time.perf_counter() - t0)
+
+
+def phase_data(tmp, m1_dir):
+    """Phase 12: a Market-format tfrecord dataset written by the port,
+    read back by the native scanner and parser against their plain
+    versions, batched in every worker mode, and fed to models 12, 1 and 3
+    through the CLI -> launches per path."""
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.apps.stage2_app import Stage2AppApp
+    from dpig_tpu_torch.apps.testers import ConditionalTransferTester
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data import loader as dl
+    from dpig_tpu_torch.data import tfrecord
+    from dpig_tpu_torch.data.synthetic import write_synthetic_tfrecords
+
+    h, w = MARKET["h"], MARKET["w"]
+    data_dir = os.path.join(tmp, "data")
+    ds = os.path.join(data_dir, "Market1501")
+    t0 = time.perf_counter()
+    shards = {split: write_synthetic_tfrecords(ds, split, n, h, w, seed=i,
+                                               n_shards=2)
+              for i, (split, n) in enumerate((("train", DATA_TRAIN_PAIRS),
+                                              ("test", DATA_TEST_PAIRS)))}
+    size = sum(os.path.getsize(p) for v in shards.values() for p in v)
+    print(f"[data] wrote {DATA_TRAIN_PAIRS} train and {DATA_TEST_PAIRS} "
+          f"test pairs at {h}x{w} (PIL JPEGs, 2 shards each, "
+          f"pn_pairs_num_*.p): {size / 2 ** 20:.1f} MiB in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    failures, n_records = [], 0
+    for paths in shards.values():
+        for path in paths:
+            records = list(tfrecord.read_records(path, verify_crc=True))
+            if records != list(tfrecord.read_records(path, verify_crc=True,
+                                                     native_scan=False)):
+                failures.append(f"native and plain readers differ on {path}")
+            for rec in records:
+                if not _same_batches(
+                        [dl.parse_example(rec, h, w, parser="native")],
+                        [dl.parse_example(rec, h, w, parser="plain")]):
+                    failures.append(f"record {n_records}: tfr_parse and the "
+                                    "plain decoder differ")
+                n_records += 1
+    print(f"[data] {n_records} records: CRCs verified, the native scanner "
+          f"equal to the plain reader, tfr_parse bit-equal to the plain "
+          f"decoder on every key: {not failures}", flush=True)
+
+    def test_split(workers, mode):
+        return dl.TFRecordPairLoader(ds, "test", 16, h, w,
+                                     dataset="Market1501", shuffle=False,
+                                     num_workers=workers, worker_mode=mode)
+
+    ref = _drain(test_split(0, "thread"))
+    same = {f"{n} {m}": _same_batches(_drain(test_split(n, m)), ref)
+            for n, m in ((LOADER_WORKERS, "thread"), (2, "process"))}
+    print(f"[data] test split: {len(ref)} batches of 16 (40 pairs; the 8 "
+          f"left over dropped); identical in order with 0 workers and "
+          f"{same}", flush=True)
+    if len(ref) != DATA_TEST_PAIRS // 16 or not all(same.values()):
+        failures.append(f"test split batches {len(ref)}, {same}")
+
+    def train_split(workers, mode="thread"):
+        return lambda: dl.TFRecordPairLoader(
+            ds, "train", 16, h, w, dataset="Market1501", shuffle=True,
+            seed=123, num_workers=workers, worker_mode=mode)
+
+    rates = {f"{n} {m}": _loader_rate(train_split(n, m), LOADER_RATE_BATCHES)
+             for n, m in ((0, "thread"), (LOADER_WORKERS, "thread"),
+                          (LOADER_WORKERS, "process"))}
+    records = list(tfrecord.read_records(shards["train"][0]))
+    parse_us = {}
+    for fields in ("all", "pose_only"):
+        t0 = time.perf_counter()
+        for rec in records:
+            dl.parse_example(rec, h, w, fields=fields)
+        parse_us[fields] = (time.perf_counter() - t0) * 1e6 / len(records)
+    print(f"[data] loader samples/s on this host (os.cpu_count() "
+          f"{os.cpu_count()}, shuffled train split, {LOADER_RATE_BATCHES} "
+          f"batches of 16 after one), by workers: "
+          f"{ {k: round(v, 1) for k, v in rates.items()} }; one parse_example"
+          f" on one thread {parse_us['all']:.1f} us a sample (pose_only, no "
+          f"JPEG or masks: {parse_us['pose_only']:.1f} us)", flush=True)
+
+    common = [f"--data_dir={data_dir}", "--dataset=Market1501",
+              f"--num_worker={LOADER_WORKERS}"]
+    batch_starts = []
+    transfer_step = ConditionalTransferTester.transfer_step
+
+    def timed_transfer(self, batch):
+        batch_starts.append(time.perf_counter())
+        return transfer_step(self, batch)
+
+    m12 = os.path.join(tmp, "m12_data")
+    ConditionalTransferTester.transfer_step = timed_transfer
+    try:
+        launches12, wall12 = _run_cli(["--model=12", "--is_train=false",
+                                       "--test_batch_num=2", *common,
+                                       f"--model_dir={m12}"])
+        per_batch = [(b - a) * 1e3 for a, b in zip(
+            batch_starts, batch_starts[1:] + [time.perf_counter()])]
+        stopped = False
+        try:
+            _run_cli(["--model=12", "--is_train=false", "--test_batch_num=3",
+                      *common, f"--model_dir={m12}_3"])
+        except StopIteration:
+            stopped = True
+    finally:
+        ConditionalTransferTester.transfer_step = transfer_step
+    trees = [os.path.join(d, "test_result") for d in (m12, f"{m12}_3")]
+    counts = [{d: len(os.listdir(os.path.join(t, d)))
+               for d in sorted(os.listdir(t))} for t in trees]
+    same_x = all(open(os.path.join(trees[0], "x", f), "rb").read()
+                 == open(os.path.join(trees[1], "x", f), "rb").read()
+                 for f in os.listdir(os.path.join(trees[0], "x")))
+    print(f"[data] model 12 on the test split (CLI, --test_batch_num=2): "
+          f"wall {wall12:.1f} s, ms per batch (transfer step to the next, "
+          f"PNG writes included) {[round(x, 1) for x in per_batch]}, files "
+          f"{counts[0]}, pose kernel launches {launches12} (expected 4); "
+          f"--test_batch_num=3: StopIteration raised {stopped}, files "
+          f"{counts[1]}, inputs equal to the first run's {same_x}",
+          flush=True)
+    if (launches12 != 4 or not stopped or not same_x
+            or any(set(c.values()) != {32} for c in counts)):
+        failures.append("model 12 on the test split")
+
+    step_ms = {1: [], 3: []}
+    originals = {1: Stage1App.train_step, 3: Stage2AppApp.train_step}
+
+    def timed(m):
+        def run(app, state, *args):
+            t0 = time.perf_counter()
+            out = originals[m](app, state, *args)
+            torch.cuda.synchronize()
+            step_ms[m].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    Stage1App.train_step, Stage2AppApp.train_step = timed(1), timed(3)
+    try:
+        launches1, wall1 = _run_cli([
+            "--model=1", f"--max_step={TRAIN_STEPS}",
+            f"--log_step={TRAIN_LOG_STEP}", *common,
+            f"--model_dir={tmp}/m1_data"])
+        launches3, wall3 = _run_cli([
+            "--model=3", f"--max_step={STAGE2_STEPS}",
+            f"--log_step={STAGE2_LOG_STEP}", f"--pretrained_path={m1_dir}",
+            *common, f"--model_dir={tmp}/m3_data"])
+    finally:
+        Stage1App.train_step, Stage2AppApp.train_step = (originals[1],
+                                                         originals[3])
+    expected1 = _expected_train_launches(Config(max_step=TRAIN_STEPS,
+                                                log_step=TRAIN_LOG_STEP))
+    expected3 = 1 + _previews(STAGE2_STEPS, STAGE2_LOG_STEP)
+    for m, ms, n, wall, got, want in (
+            (1, step_ms[1], TRAIN_STEPS, wall1, launches1, expected1),
+            (3, step_ms[3], STAGE2_STEPS, wall3, launches3, expected3)):
+        print(f"[data] model {m} on the train split (CLI, batch 16, "
+              f"num_worker {LOADER_WORKERS}, {n} steps"
+              f"{', fresh batches' if m == 3 else ''}): wall {wall:.1f} s; "
+              f"per-step ms after the first {[round(x, 2) for x in ms[1:]]}"
+              f" (first {ms[0]:.1f}); "
+              f"{16 * 1e3 / statistics.median(ms[1:]):.2f} images/s at the "
+              f"median; pose kernel launches {got} (expected {want})",
+              flush=True)
+        if got != want or len(ms) != n:
+            failures.append(f"model {m} on the train split: {got} launches,"
+                            f" {len(ms)} steps")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"model 12 on tfrecords": launches12,
+            "model 1 on tfrecords": launches1,
+            "model 3 on tfrecords": launches3}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card",
@@ -1152,8 +1382,9 @@ def main() -> int:
         phase_train_parity(os.path.join(tmp, "m1_parity"))
         stage2 = phase_stage2_train(tmp, os.path.join(tmp, "m1"))
         phase_stage2_parity(os.path.join(tmp, "stage2_parity"))
+        data = phase_data(tmp, os.path.join(tmp, "m1"))
     by_path = {"model 12 transfer": model12, **sampling,
-               "model 1 training": train, **stage2}
+               "model 1 training": train, **stage2, **data}
     kernel["launches"] = sum(by_path.values())
     kernel["launches_by_path"] = by_path
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s",

@@ -65,11 +65,12 @@ class Stage1App:
         if cfg.img_H >= 256:
             raise NotImplementedError(
                 "the 256x256 family (models 101-104/1001/1002) is not ported "
-                "to dpig_tpu_torch yet (ROADMAP queue item 4)")
+                'to dpig_tpu_torch yet (ROADMAP §1, "The 256 family")')
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 f"--compute_dtype={cfg.compute_dtype}: dpig_tpu_torch runs "
-                "float32 only so far")
+                'float32 only so far (ROADMAP §1, "The bfloat16 compute '
+                'path")')
         self.cfg = cfg
         self.device = device
         self.encoder = RoiEncoderFgBg(
@@ -125,8 +126,9 @@ class Stage1App:
         (stage1_app.py:66-93). `train_step` takes the returned state."""
         cfg = self.cfg
         if cfg.remat:
-            raise NotImplementedError("--remat (activation rematerialization)"
-                                      " is not ported to dpig_tpu_torch yet")
+            raise NotImplementedError(
+                "--remat (activation rematerialization) is not ported to "
+                'dpig_tpu_torch yet (ROADMAP §1, "The remaining CLI modes and options")')
         for m in (self.encoder, self.generator, self.disc):
             m.requires_grad_(True)
         return GanState.create(

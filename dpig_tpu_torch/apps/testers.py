@@ -24,13 +24,16 @@ from the same weights.
   'sampled'       — the pose AE's decoding of PoseGaussian(noise), the
                     paper's intended sampler (trainer.py:894-904).
 
+Each `run()` takes `n` batches with `next(loader)`, as the JAX package's
+do: a finite test split that ends first raises StopIteration out of
+`run()`, after the batches it had were written.
+
 Work whose result a step does not use is not done (XLA drops it from the
 JAX package's jitted steps): the ROI encoder when every appearance code is
 sampled, the mappers when none is, and the pose AE's radius-0 preview.
 """
 from __future__ import annotations
 
-import itertools
 import os
 from typing import Dict, Iterator, Mapping, Optional, Tuple
 
@@ -88,8 +91,8 @@ class _TesterBase:
         if cfg.inference_dtype == "int8":
             raise NotImplementedError(
                 "--inference_dtype=int8 needs models/quant.py and its s8 conv "
-                "kernel, not ported to dpig_tpu_torch yet (ROADMAP queue "
-                "item 6)")
+                "kernel, not ported to dpig_tpu_torch yet (ROADMAP §1, "
+                '"The int8 serving path")')
         self.cfg = cfg
         self.device = select_device(cfg.platform)
         if params is None:
@@ -249,7 +252,8 @@ class FullSamplingTester(_TesterBase):
                                          "pose_target", "G_pose", "mask",
                                          "mask_target"])
         gen = torch.Generator().manual_seed(0)  # tf.set_random_seed(0)
-        for i, batch in enumerate(itertools.islice(loader, n)):
+        for i in range(n):
+            batch = next(loader)  # a finite split ends: StopIteration
             jb = batch_to_device(batch, self.device)
             noise = self.draw_noise(gen, batch["x"].shape[0])
             g, pose_maps, score, g_rcv = self.sample_step(jb, noise,
@@ -290,7 +294,7 @@ class FactorSamplingTester(_TesterBase):
     """Model 13 (tester.py:419-613), Market: independently toggle
     sample_fg / sample_bg / sample_pose; a factor not sampled is sample 0's
     across the batch. Model 1002 (DeepFashion's single mapper) is the 256
-    family, not ported yet (ROADMAP queue item 4)."""
+    family, not ported yet (ROADMAP §1, "The 256 family")."""
 
     SUBTREES = FullSamplingTester.SUBTREES
     DEFAULT_BATCHES = 400  # tester.py:475
@@ -333,7 +337,8 @@ class FactorSamplingTester(_TesterBase):
             f"SamplePose{cfg.sample_pose}_pretrain_{n}x{cfg.batch_size}")
         dirs = _save_dir_tree(out_root, ["x", "G", "pose"])
         gen = torch.Generator().manual_seed(0)
-        for i, batch in enumerate(itertools.islice(loader, n)):
+        for i in range(n):
+            batch = next(loader)
             jb = batch_to_device(batch, self.device)
             g, pose_maps, _ = self.sample_step(
                 jb, self.draw_noise(gen, batch["x"].shape[0]))
@@ -370,7 +375,8 @@ class ConditionalTransferTester(_TesterBase):
         dirs = _save_dir_tree(out_root, ["x", "x_target", "G", "pose",
                                          "pose_target", "mask", "mask_target"])
         ssims = []
-        for i, batch in enumerate(itertools.islice(loader, n)):
+        for i in range(n):
+            batch = next(loader)
             jb = batch_to_device(batch, self.device)
             g, pose_t, _score = self.transfer_step(jb)
             with torch.inference_mode():

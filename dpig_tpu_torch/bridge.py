@@ -23,10 +23,18 @@ here; a sub-tree not asked for is left out (a JAX cold start also holds
 raises where the state is loaded (`load_state_dict(strict=True)`). The
 port's own checkpoints give sub-trees in the same format
 (`train/checkpoint.py:restore_subtrees`).
+
+`state_from_orbax(tree)` is the other half: a whole checkpoint of the
+JAX package, as `dpig_tpu.train.checkpoint.restore_tree` gives it (orbax
+restores optax's namedtuples as dicts and its tuples as lists), becomes
+the port's checkpoint tree (`train/checkpoint.py`): params and frozen
+nets through `params_from_flax`, the D's `d_stats` as its BatchNorm
+`running_mean` / `running_var`, and each optax state as the port
+optimizer's `{'count', 'mu', 'nu'}` (`opt_state_from_optax`).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -76,3 +84,68 @@ def params_from_flax(tree: Mapping, subtrees: Sequence[str] = STAGE1_SUBTREES
         state[name] = flat
     return state
 
+
+
+def _fields(node) -> Mapping:
+    """An optax state node as a dict (a namedtuple, or orbax's dict)."""
+    return node._asdict() if hasattr(node, "_asdict") else node
+
+
+def opt_state_from_optax(opt_state: Sequence, subtrees: Sequence[str]
+                         ) -> Dict[str, Any]:
+    """optax's state of `make_optimizer` -> the port optimizer's
+    `state_dict()`: `{'count': int, 'mu': {...}, 'nu': {...}}`, each moment
+    keyed `<sub-tree>/<param name>` as `train.state.named_params`.
+
+    Adam is (ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count)),
+    RMSProp (ScaleByRmsState(nu), ScaleByScheduleState(count),
+    EmptyState()): it has no mu, and its count is the schedule's. The
+    moments are param-shaped trees and map as the params do (a conv
+    kernel's moment is transposed as the kernel)."""
+    parts = [_fields(n) for n in opt_state if n is not None and _fields(n)]
+    if len(parts) != 2:
+        raise ValueError(f"expected (scale_by_*, schedule) optax state, got "
+                         f"{len(parts)} non-empty parts")
+    inner, schedule = parts
+    count = int(np.asarray(schedule["count"]))
+    if "count" in inner and int(np.asarray(inner["count"])) != count:
+        raise ValueError(f"optax counts disagree: {int(inner['count'])} "
+                         f"(moments) vs {count} (schedule)")
+    out: Dict[str, Any] = {"count": count}
+    for moment in ("mu", "nu"):
+        if moment in inner:
+            flat = params_from_flax(inner[moment], subtrees)
+            out[moment] = {f"{k}/{n}": t for k, d in flat.items()
+                           for n, t in d.items()}
+    if "nu" not in out:
+        raise KeyError(f"unknown optax state with keys {sorted(inner)}")
+    return out
+
+
+def state_from_orbax(tree: Mapping) -> Dict[str, Any]:
+    """A JAX package checkpoint tree (`restore_tree`) -> the port's
+    checkpoint tree, each key present only where the JAX tree has it (the
+    D's statistics wherever it has a D: FC critics have none)."""
+    out: Dict[str, Any] = {"step": int(np.asarray(tree["step"]))}
+    for side in ("g", "d"):
+        params = tree.get(f"{side}_params")
+        if params is None:
+            continue
+        names = list(params)
+        out[f"{side}_params"] = params_from_flax(params, names)
+        if tree.get(f"{side}_opt_state") is not None:
+            out[f"{side}_opt_state"] = opt_state_from_optax(
+                tree[f"{side}_opt_state"], names)
+    if "d_params" in out:
+        names = list(out["d_params"])
+        out["d_stats"] = {n: {} for n in names}
+        if tree.get("d_stats"):
+            if len(names) != 1:
+                raise ValueError(f"d_stats with {len(names)} D sub-trees "
+                                 f"{names}: cannot tell whose they are")
+            out["d_stats"][names[0]] = params_from_flax(
+                {"d_stats": tree["d_stats"]}, ["d_stats"])["d_stats"]
+    frozen = tree.get("frozen_params")
+    if frozen:
+        out["frozen_params"] = params_from_flax(frozen, list(frozen))
+    return out

@@ -3,13 +3,18 @@
 
 Shape/dtype-faithful to the tfrecord schema (datasets/market1501.py:79-113).
 The same seed gives the same numpy batches as the JAX package's loader;
-batches stay numpy so callers pick the device.
+batches stay numpy so callers pick the device. `write_synthetic_tfrecords`
+(the port's own) writes such fixtures as a tfrecord pair dataset.
 """
 from __future__ import annotations
 
-from typing import Dict
+import io
+import os
+import pickle
+from typing import Dict, List
 
 import numpy as np
+from PIL import Image
 
 
 def synthetic_batch(rng: np.random.Generator, batch_size: int, img_h: int,
@@ -67,3 +72,57 @@ class SyntheticLoader:
 
     def __next__(self) -> Dict[str, np.ndarray]:
         return synthetic_batch(self._rng, *self._args)
+
+    def close(self) -> None:
+        """Nothing to release (`TFRecordPairLoader.close`'s twin)."""
+
+
+def write_synthetic_tfrecords(dataset_dir: str, split: str, n_pairs: int,
+                              img_h: int, img_w: int, seed: int = 0,
+                              n_shards: int = 1, name: str = "Market1501"
+                              ) -> List[str]:
+    """A Market-format pair dataset from `synthetic_batch` fixtures, for
+    smoke runs and measurements without the published bundles: shards
+    `<name>_<split>_XXXXX.tfrecord` of `build_pair_example` records (the
+    images JPEG-encoded by PIL, the visible keypoints as OpenPose peaks,
+    the synthetic masks as 'pose_mask_r4' / 'pose_mask_r6', the part
+    bboxes and visibility), records dealt round-robin over the shards,
+    and the py2 pickle `pn_pairs_num_<split>.p` with the pair count.
+    Returns the shard paths."""
+    from .example import build_pair_example
+    from .tfrecord import TFRecordWriter
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(dataset_dir, exist_ok=True)
+    paths = [os.path.join(dataset_dir, f"{name}_{split}_{i:05d}.tfrecord")
+             for i in range(n_shards)]
+    writers = [TFRecordWriter(p) for p in paths]
+    try:
+        for i in range(n_pairs):
+            b = synthetic_batch(rng, 1, img_h, img_w)
+            kw = {}
+            for s, tag in (("_0", ""), ("_1", "_target")):
+                img = np.clip(np.rint((b[f"x{tag}"][0] + 1.0) * 127.5), 0,
+                              255).astype(np.uint8)
+                buf = io.BytesIO()
+                Image.fromarray(img).save(buf, format="JPEG")
+                kw[f"image_raw{s}"] = buf.getvalue()
+                kw[f"peaks{s}"] = [[[float(c), float(r), 1.0, k]] if v > 0
+                                   else [] for k, (r, c, v) in
+                                   enumerate(b[f"pose_rcv{tag}"][0])]
+                kw[f"masks{s}"] = {
+                    "pose_mask_r4": b[f"mask_r4{tag}"][0, ..., 0],
+                    "pose_mask_r6": b[f"mask_r6{tag}"][0, ..., 0]}
+                kw[f"part_bbox{s}"] = b[f"part_bbox{tag}"][0]
+                kw[f"part_vis{s}"] = b[f"part_vis{tag}"][0]
+            writers[i % n_shards].write(build_pair_example(
+                name_0=f"{i:05d}_0.jpg", name_1=f"{i:05d}_1.jpg",
+                height=img_h, width=img_w, label=1, id_0=i, id_1=i,
+                cam_0=0, cam_1=1, **kw))
+    finally:
+        for w in writers:
+            w.close()
+    with open(os.path.join(dataset_dir, f"pn_pairs_num_{split}.p"),
+              "wb") as f:
+        pickle.dump(n_pairs, f, protocol=2)
+    return paths

@@ -17,6 +17,22 @@
         --pretrained_poseSample_path=<s4> --synthetic_data=true \
         --test_batch_num=4 --model_dir=<dir>
 
+On real data, drop --synthetic_data and name the directory of a Market
+pair dataset (`<data_dir>/<dataset>/*_train_*.tfrecord`,
+`*_test_*.tfrecord`, `pn_pairs_num_<split>.p`, as the JAX package reads):
+
+    python -m dpig_tpu_torch.main --model=1 --data_dir=<dir> \
+        --dataset=Market_train_data --num_worker=4 --max_step=1000 \
+        --model_dir=<s1>
+    python -m dpig_tpu_torch.main --model=12 --is_train=false \
+        --data_dir=<dir> --dataset=Market_train_data --test_batch_num=4 \
+        --pretrained_path=<s1> --model_dir=<dir>
+
+Training reads `--split` shuffled with `--random_seed`; testing reads the
+test split in file order and raises StopIteration when it ends before
+`--test_batch_num` batches. Weights trained by the JAX package come in
+through `scripts/orbax_to_torch.py` (run where JAX is installed).
+
 Runs the Market training chain, Stage I (model 1), the pose AE (2), the
 appearance samplers (3) and the pose sampler (4), each stage's checkpoints
 feeding the `--pretrained_*` flags of the next and of the testers, then
@@ -29,9 +45,12 @@ item.
 """
 from __future__ import annotations
 
+import contextlib
+
 from .apps.common import (batch_to_device, pose_maps_from_batch,
                           select_device, select_parts)
 from .config import Config, get_config
+from .data.loader import TFRecordPairLoader
 from .data.synthetic import SyntheticLoader
 from .models.mappers import sample_mapper_noise
 
@@ -39,12 +58,18 @@ TRAIN_MODELS = (1, 2, 3, 4, 101, 102, 103, 104)
 
 
 def make_loader(cfg: Config):
+    """Synthetic batches, or the tfrecord pairs of `cfg.data_path` (the JAX
+    package's main.py:19-36, one process: host 0 of 1): the `split` when
+    training, shuffled with `random_seed`, else the test split in file
+    order, which ends (the testers then raise StopIteration)."""
     if cfg.synthetic_data:
         return SyntheticLoader(cfg.batch_size, cfg.img_H, cfg.img_W,
                                seed=cfg.random_seed)
-    raise NotImplementedError(
-        "the tfrecord pair loader is not ported to dpig_tpu_torch yet; "
-        "pass --synthetic_data=true")
+    return TFRecordPairLoader(
+        cfg.data_path, cfg.split if cfg.is_train else "test",
+        cfg.batch_size, cfg.img_H, cfg.img_W, dataset=cfg.dataset,
+        shuffle=cfg.is_train, seed=cfg.random_seed,
+        num_workers=cfg.num_worker, worker_mode=cfg.worker_mode)
 
 
 def train_model(cfg: Config):
@@ -53,12 +78,16 @@ def train_model(cfg: Config):
     if cfg.model not in (1, 2, 3, 4):
         raise NotImplementedError(
             f"--model={cfg.model}: the 256x256 family is not ported to "
-            "dpig_tpu_torch yet (ROADMAP queue item 4)")
+            'dpig_tpu_torch yet (ROADMAP §1, "The 256 family")')
+    with contextlib.closing(make_loader(cfg)) as loader:
+        return _train(cfg, loader)
+
+
+def _train(cfg: Config, loader):
     from .train import checkpoint as ckpt
     from .train.harness import Trainer
 
     device = select_device(cfg.platform)
-    loader = make_loader(cfg)
     if cfg.model == 1:
         from .apps.stage1_app import Stage1App
         app = Stage1App(cfg, device)
@@ -104,19 +133,24 @@ def train_model(cfg: Config):
 def test_model(cfg: Config) -> str:
     """The test dispatch of the JAX package's main.py:118-156; returns the
     output directory."""
-    from .apps import testers
     unported = [f for f in ("test_one_by_one", "inverse_fg", "inverse_bg",
                             "inverse_pose") if getattr(cfg, f)]
     if unported:
-        raise NotImplementedError(f"--{unported[0]} is not ported to "
-                                  "dpig_tpu_torch yet")
+        raise NotImplementedError(
+            f"--{unported[0]} is not ported to dpig_tpu_torch yet (ROADMAP "
+            '§1, "The remaining CLI modes and options")')
     if cfg.model in (1001, 1002):
         raise NotImplementedError(
             f"--model={cfg.model}: the 256x256 family is not ported to "
-            "dpig_tpu_torch yet (ROADMAP queue item 4)")
+            'dpig_tpu_torch yet (ROADMAP §1, "The 256 family")')
     if cfg.model not in (11, 12, 13):
         raise ValueError(f"unknown test model {cfg.model}")
-    loader = make_loader(cfg)
+    with contextlib.closing(make_loader(cfg)) as loader:
+        return _test(cfg, loader)
+
+
+def _test(cfg: Config, loader) -> str:
+    from .apps import testers
     if (cfg.interpolate_fg or cfg.interpolate_fg_up or cfg.interpolate_fg_down
             or cfg.interpolate_bg or cfg.interpolate_pose):
         return testers.InterpolationTester(cfg).run(loader)
@@ -137,7 +171,7 @@ def main(argv=None) -> None:
     cfg = get_config(argv)
     if cfg.num_processes > 1 or cfg.coordinator_address:
         raise NotImplementedError("multi-process runs (DDP) are not ported "
-                                  "to dpig_tpu_torch yet")
+                                  'to dpig_tpu_torch yet (ROADMAP §1, "DDP")')
     select_device(cfg.platform)  # fail before writing anything
     cfg.save()
     print(f"[*] MODEL dir: {cfg.model_dir}")

@@ -72,5 +72,6 @@ def get_discriminator(arch: str, img_h: int, img_w: int,
     """The 'dcgan'-mode DCGAN D of discriminators.py:135 (`--D_arch`)."""
     if arch != "DCGAN":
         raise NotImplementedError(
-            f"--D_arch={arch}: only DCGAN is ported to dpig_tpu_torch")
+            f"--D_arch={arch}: only DCGAN is ported to dpig_tpu_torch "
+            '(ROADMAP §1, "The remaining CLI modes and options")')
     return DCGANDiscriminator(img_h, img_w, n_stages=n_stages)

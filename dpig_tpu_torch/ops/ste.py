@@ -2,7 +2,7 @@
 reference models.py:91-111).
 
 `bernoulli_sample` (part dropout) is not ported yet: nothing in the port
-draws it (ROADMAP queue item 1).
+draws it (ROADMAP §1, "The remaining CLI modes and options").
 """
 from __future__ import annotations
 

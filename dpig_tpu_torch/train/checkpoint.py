@@ -17,8 +17,11 @@ of the JAX package's keys (checkpoint.py:29-38),
 with every tensor on the CPU. As in the JAX package, a state without a D
 (the pose AE) or without frozen nets leaves those keys out. A sub-tree's
 tensors are keyed like its module's `state_dict()`, the format of
-`bridge.params_from_flax`. Reading a JAX orbax checkpoint is not ported
-yet (ROADMAP queue item 5): a path that holds one raises.
+`bridge.params_from_flax`. The port does not read the JAX package's
+orbax checkpoints itself (that needs JAX): `scripts/orbax_to_torch.py`,
+run where JAX is installed, converts one into this format, optimizer
+moments and D statistics included (`bridge.state_from_orbax`), and a
+path that holds an orbax checkpoint raises naming that command.
 """
 from __future__ import annotations
 
@@ -64,14 +67,20 @@ def state_tree(state: GanState) -> Dict:
     return tree
 
 
-def save_checkpoint(model_dir: str, step: int, state: GanState) -> str:
-    """Write `state` under ckpt/step_<step>; returns the directory."""
+def save_tree(model_dir: str, step: int, tree: Dict) -> str:
+    """Write a checkpoint tree under ckpt/step_<step>; returns the
+    directory."""
     path = _ckpt_dir(model_dir, step)
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, f"{STATE_FILE}.{os.getpid()}.tmp")
-    torch.save(state_tree(state), tmp)
+    torch.save(tree, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))  # never half a file
     return path
+
+
+def save_checkpoint(model_dir: str, step: int, state: GanState) -> str:
+    """Write `state` under ckpt/step_<step>; returns the directory."""
+    return save_tree(model_dir, step, state_tree(state))
 
 
 def latest_checkpoint(model_dir: str) -> Optional[str]:
@@ -105,8 +114,10 @@ def resolve_checkpoint(path: str) -> str:
     if _holds_orbax(path):
         raise NotImplementedError(
             f"{path} holds an orbax checkpoint of the JAX package; "
-            "dpig_tpu_torch reads its own (ckpt/step_*/state.pt) only: the "
-            "orbax importer is ROADMAP queue item 5")
+            "dpig_tpu_torch reads its own (ckpt/step_*/state.pt) only. "
+            "Import it first, where JAX is installed: python "
+            f"scripts/orbax_to_torch.py {path} <port model_dir>, then pass "
+            "<port model_dir>")
     raise FileNotFoundError(f"no checkpoint at or under {path}")
 
 

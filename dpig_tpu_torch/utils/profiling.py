@@ -47,7 +47,12 @@ D step), cold start, float32, and prints eight breakdowns:
           backward, D update, clip; host ms per step as the Trainer runs
           it (`Trainer.step`: copy in, noise, step, synchronized); and
           torch.profiler over one such step: busy share, top kernels and
-          the host-to-device copies it made.
+          the host-to-device copies it made;
+  stage2 loader  the same model-3 Trainer step fed by `TFRecordPairLoader`
+          (LOADER_PAIRS synthetic pairs written as Market tfrecords with
+          JPEGs, shuffled, `num_worker` thread workers, prefetch 2) in
+          place of the synthetic batches: host ms per step and a traced
+          step's busy share and host-to-device copies.
 
 The last line is one JSON object with every number printed. Needs a card.
 """
@@ -70,7 +75,8 @@ from ..apps.stage2_pose import Stage2PoseApp
 from ..apps.testers import (ConditionalTransferTester, FullSamplingTester,
                              _save_batch_pngs)
 from ..config import Config
-from ..data.synthetic import SyntheticLoader
+from ..data.loader import TFRecordPairLoader
+from ..data.synthetic import SyntheticLoader, write_synthetic_tfrecords
 from ..eval.metrics import ssim_images
 from ..ops.pose import render_pose_maps
 from ..train.harness import Trainer
@@ -83,6 +89,7 @@ SAMPLING_SOURCE = "sampled"
 LOOP = ("copy_in", "transfer_step", "source_pose", "copy_out", "png_write",
         "ssim")
 CROP_BACKWARD_OP = "aten::_index_put_impl_"
+LOADER_PAIRS = 192  # two epochs of fresh model-3 steps (96 samples each)
 REPS = 5
 
 
@@ -341,6 +348,22 @@ def stage2_profile(cls, cfg: Config, reps: int) -> dict:
             "trace": trace(lambda: trainer.step(state))}
 
 
+def stage2_loader_profile(cfg: Config, reps: int) -> dict:
+    """Host ms per model-3 `Trainer.step` and a traced step, the batches
+    read from the tfrecord pairs under `cfg.data_path`."""
+    app = Stage2AppApp(cfg, torch.device("cuda"))
+    state = app.init_state()
+    with TFRecordPairLoader(
+            cfg.data_path, cfg.split, cfg.batch_size, cfg.img_H, cfg.img_W,
+            dataset=cfg.dataset, shuffle=True, seed=cfg.random_seed,
+            num_workers=cfg.num_worker,
+            worker_mode=cfg.worker_mode) as loader:
+        trainer = Trainer(cfg, app, loader)
+        step_ms = trainer_step_ms(trainer, state, reps)
+        return {"step_ms": step_ms,
+                "trace": trace(lambda: trainer.step(state))}
+
+
 def _device_time_us(evt) -> float:
     """Device time of a key_averages() row (`cuda_time_total` before
     PyTorch 2.4)."""
@@ -439,6 +462,13 @@ def main() -> int:
                                                 model_dir=f"{tmp}/m{m}"),
                                     REPS)
                   for m, cls in ((3, Stage2AppApp), (4, Stage2PoseApp))}
+        data_cfg = Config(platform="", model_dir=f"{tmp}/m3_data",
+                          data_dir=f"{tmp}/data",
+                          dataset="Market1501").finalize()
+        write_synthetic_tfrecords(data_cfg.data_path, data_cfg.split,
+                                  LOADER_PAIRS, cfg.img_H, cfg.img_W,
+                                  n_shards=2)
+        stage2_loader = stage2_loader_profile(data_cfg, REPS)
     name = torch.cuda.get_device_name(0)
     print(f"[profile] {name}, model 12 {cfg.img_H}x{cfg.img_W} hidden "
           f"{cfg.conv_hidden_num} z {cfg.z_num} batch {cfg.batch_size}")
@@ -514,6 +544,18 @@ def main() -> int:
         for row in tr["top"]:
             print(f"[stage2 trace]   {row['ms']:9.3f} ms  x{row['count']:<4d} "
                   f"{row['name']}")
+    tr = stage2_loader["trace"]
+    print(f"[stage2 loader] model 3 fed by TFRecordPairLoader ({LOADER_PAIRS} "
+          f"pairs, JPEG, num_worker {data_cfg.num_worker} "
+          f"{data_cfg.worker_mode}): host ms per Trainer step (copy in, "
+          f"noise, step, sync; {REPS} steps): median "
+          f"{statistics.median(stage2_loader['step_ms']):.2f}, all "
+          f"{[round(t, 2) for t in stage2_loader['step_ms']]} (synthetic "
+          f"batches: median {statistics.median(stage2[3]['step_ms']):.2f}); "
+          f"traced step: wall {tr['wall_ms']:.2f} ms, device busy "
+          f"{tr['device_busy_ms']:.2f} ms (share "
+          f"{tr['device_busy_share']:.3f}); host-to-device copies "
+          f"{tr['h2d_copies']}")
     print(json.dumps({"device": name, "batch_size": cfg.batch_size,
                       "stages_ms": stages, "stages_flops": flops,
                       "loop_ms": loop, "trace": trace_12,
@@ -522,7 +564,7 @@ def main() -> int:
                       "train_phase_ms": train_ms,
                       "train_phase_flops": train_flops,
                       "train_step_ms": step_ms, "train_trace": train_trace,
-                      "stage2": stage2}))
+                      "stage2": stage2, "stage2_loader": stage2_loader}))
     return 0
 
 

@@ -25,6 +25,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs a CUDA card; skipped without one")
+    config.addinivalue_line(
+        "markers", "slow: a full-width check, outside Tier-1's -m 'not slow'")
 
 
 @pytest.fixture

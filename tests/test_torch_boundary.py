@@ -42,6 +42,16 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_no_port_module_imports_scripts_or_protobuf():
+    """`scripts/` (the orbax importer imports both packages) and protobuf /
+    google_crc32c (the port parses and checksums tfrecords itself) stay
+    out of the port and of chip_smoke.py."""
+    bad = {str(p.relative_to(ROOT)): sorted(
+        set(_imported_roots(p)) & {"scripts", "google", "google_crc32c"})
+        for p in _port_files()}
+    assert not {k: v for k, v in bad.items() if v}
+
+
 def test_the_scan_sees_a_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import os\nfrom dpig_tpu.ops import pose\n")

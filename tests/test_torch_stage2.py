@@ -418,13 +418,16 @@ def _assert_tree_equal(got, want, path=""):
 
 
 def test_an_orbax_checkpoint_raises_naming_item_5(tmp_path):
+    """(The name is from when the importer was ROADMAP item 5; the refusal
+    now names the importer's command.)"""
     step = tmp_path / "ckpt" / "step_00000010"
     step.mkdir(parents=True)
     (step / "_CHECKPOINT_METADATA").write_text("{}")
     for path in (tmp_path, step):
-        with pytest.raises(NotImplementedError, match="queue item 5"):
+        with pytest.raises(NotImplementedError,
+                           match="orbax checkpoint.*orbax_to_torch.py"):
             ckpt.restore_subtrees(str(path), ["Encoder"])
-    with pytest.raises(NotImplementedError, match="queue item 5"):
+    with pytest.raises(NotImplementedError, match="orbax_to_torch.py"):
         port_main.train_model(_cfg(tmp_path / "m3", model=3,
                                    synthetic_data=True,
                                    pretrained_path=str(tmp_path)))

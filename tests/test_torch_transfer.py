@@ -116,14 +116,15 @@ def test_preview_ssim_and_pose_gray_match_jax(rng):
 
 
 def test_unported_options_raise(tmp_path):
-    """An orbax checkpoint of the JAX package raises (queue item 5); a port
-    checkpoint loads, and with every sub-tree it needs and no D the tester
-    scores zeros, as JAX does."""
+    """An orbax checkpoint of the JAX package raises, naming the importer;
+    a port checkpoint loads, and with every sub-tree it needs and no D the
+    tester scores zeros, as JAX does."""
     from dpig_tpu_torch.apps.stage1_app import Stage1App
     from dpig_tpu_torch.train import checkpoint as ckpt
     (tmp_path / "orbax").mkdir()
     (tmp_path / "orbax" / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(NotImplementedError, match="orbax.*queue item 5"):
+    with pytest.raises(NotImplementedError,
+                       match="orbax.*scripts/orbax_to_torch.py"):
         testers.ConditionalTransferTester(
             small_cfg(tmp_path, pretrained_path=str(tmp_path / "orbax")))
     app = Stage1App(small_cfg(tmp_path, random_seed=5), torch.device("cpu"))
