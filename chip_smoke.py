@@ -114,8 +114,32 @@ Phases, each printing one line; any failure exits non-zero:
               and model 3 (`fresh`, on phase 6's model-1 dir, 4 steps) on
               the train split, per-step ms and pose launches.
 
-The line before the last is {"kernels": [...]}, with the pose kernel's
-launches on each path; the last line is {"ok": true, "device": {...}}.
+ 13. bf16     `--compute_dtype=bfloat16`: model 1 through the CLI with
+              phase 6's checks (TRAIN_STEPS steps, metrics, previews,
+              checkpoint, resume), each train-step phase's device ms beside
+              float32's; model 12 through the CLI (BF16_BATCHES batches)
+              and its device ms per batch beside float32's; card vs CPU at
+              batch 2 within the CPU's own bf16-vs-float32 gap.
+ 14. s8 conv  the s8 conv kernel on every call one int8 model-12 batch at
+              full width makes (the generator and the FG/BG encoder,
+              recorded after calibration): 0 elements differing from its
+              plain version, kernel and plain device times, launches per
+              batch, the bound (2*M*N*K at the dense s8 tensor rate, or the
+              bytes at the memory rate) and its share, and cuDNN's bf16 conv
+              at the same shape (no PyTorch call computes the kernel's
+              function);
+ 15. int8     `--inference_dtype=int8` at the defaults (channel, island):
+              models 12 and 11 (sample_app, sampled poses) through the CLI,
+              each printing its self-check SSIM(int8,float), with the s8 and
+              pose launches each path must make; `--int8_fallback_layers=
+              dec/Conv_13,to_rgb` in island and legacy modes; device ms per
+              batch of model 12 at float32, bf16 and int8; card vs CPU at
+              batch 2 within the CPU's own int8-vs-float32 gap.
+
+The line before the last is {"kernels": [...]}: the pose kernel with its
+launches on each path, and the s8 conv with its launches on the int8
+paths and its times summed over one int8 batch; the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -257,6 +281,7 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from dpig_tpu_torch.kernels import _build
     sources = {"pose_raster": ("pose_raster.cu", _build.load),
+               "s8_conv": ("s8_conv.cu", _build.load),
                "tfrecord_scanner": ("tfrecord_scanner.cc", _build.load_host)}
 
     def build(lib):
@@ -272,13 +297,14 @@ def phase_build():
         print(f"[build] {sources[lib][0]}: "
               f"{'built' if fresh else 'cached library'} and loaded in "
               f"{secs:.2f} s", flush=True)
-    name = "pose_raster"
-    ptxas = [ln.split(":", 1)[-1].strip() for ln in
-             _build.build_log(name).splitlines()
-             if "Used" in ln or "spill" in ln]
-    print(f"[build] {name} ptxas -v: {' | '.join(ptxas) or 'not reported'}"
-          f"; shared memory: dynamic only, K*8 B per block (144 B at K=18)",
-          flush=True)
+    for name, note in (("pose_raster", "; shared memory: dynamic only, "
+                        "K*8 B per block (144 B at K=18)"),
+                       ("s8_conv", "; two kernels: 16-byte loads / bytes")):
+        ptxas = [ln.split(":", 1)[-1].strip() for ln in
+                 _build.build_log(name).splitlines()
+                 if "Used" in ln or "spill" in ln]
+        print(f"[build] {name} ptxas -v: "
+              f"{' | '.join(ptxas) or 'not reported'}{note}", flush=True)
 
 
 def _rcv(rng, shape, normalized):
@@ -718,9 +744,10 @@ def _expected_train_launches(cfg) -> int:
     return cfg.max_step + 1 + _previews(cfg.max_step, cfg.log_step)
 
 
-def phase_train(model_dir):
-    """Model 1 through the CLI entry point at full width, then a fresh
-    Trainer on the same model_dir auto-resumes from the checkpoint."""
+def phase_train(model_dir, dtype="float32"):
+    """Model 1 through the CLI entry point at full width in `dtype`
+    (`--compute_dtype`), then a fresh Trainer on the same model_dir
+    auto-resumes from the checkpoint."""
     from dpig_tpu_torch import main as port_main
     from dpig_tpu_torch.apps.stage1_app import Stage1App
     from dpig_tpu_torch.config import Config
@@ -731,7 +758,7 @@ def phase_train(model_dir):
 
     argv = ["--model=1", "--synthetic_data=true",
             f"--max_step={TRAIN_STEPS}", f"--log_step={TRAIN_LOG_STEP}",
-            f"--model_dir={model_dir}"]
+            f"--compute_dtype={dtype}", f"--model_dir={model_dir}"]
     step_ms, metrics_seen = [], []
     train_step = Stage1App.train_step
 
@@ -755,7 +782,7 @@ def phase_train(model_dir):
         Stage1App.train_step = train_step
 
     cfg = Config(model_dir=model_dir, max_step=TRAIN_STEPS,
-                 log_step=TRAIN_LOG_STEP)
+                 log_step=TRAIN_LOG_STEP, compute_dtype=dtype)
     if (cfg.img_H, cfg.img_W, cfg.conv_hidden_num, cfg.z_num,
             cfg.batch_size, cfg.fast_gan_step) != (128, 64, 128, 64, 16,
                                                    False):
@@ -767,7 +794,7 @@ def phase_train(model_dir):
     saved = ckpt.latest_checkpoint(model_dir)
     expected = _expected_train_launches(cfg)
     finite = all(np.isfinite(v) for m in metrics_seen for v in m.values())
-    print(f"[train] model 1 {cfg.img_H}x{cfg.img_W} hidden "
+    print(f"[train] model 1 {dtype} {cfg.img_H}x{cfg.img_W} hidden "
           f"{cfg.conv_hidden_num} z {cfg.z_num} batch {cfg.batch_size}, "
           f"{TRAIN_STEPS} steps, log_step {TRAIN_LOG_STEP}: wall {wall:.1f} "
           f"s; per-step ms after the first "
@@ -1361,6 +1388,343 @@ def phase_data(tmp, m1_dir):
             "model 3 on tfrecords": launches3}
 
 
+# ------------------------------------------------ reduced precision
+# Dense s8 tensor-core rate of the H100 SXM (data sheet, without sparsity).
+S8_OPS_PER_S = 1979e12
+BF16_BATCHES = 2
+INT8_BATCHES = 2
+INT8_FALLBACK = "dec/Conv_13,to_rgb"
+# s8 conv launches of one int8 batch at full Market width: the encoder's
+# stem/Conv_1..2 and its two towers of 14 convs, the generator's g_stem,
+# 14 + 14 tower convs and to_rgb (all-int8 defaults).
+S8_ENCODER_CONVS, S8_GENERATOR_CONVS = 30, 30
+
+
+def _stage_ms_sum(tester, batch, reps=5):
+    """Device ms per layer of transfer_step (utils/profiling.py) on one
+    host batch, and their sum."""
+    from dpig_tpu_torch.apps.common import batch_to_device
+    from dpig_tpu_torch.utils import profiling
+    ms = profiling.stage_ms(tester, batch_to_device(batch, tester.device),
+                            reps)
+    return ms, sum(ms.values())
+
+
+def phase_bf16(tmp):
+    """`--compute_dtype=bfloat16`: model 1 through the CLI (phase 6's
+    checks) with its per-phase device profile beside float32's; model 12
+    through the CLI and its device ms per batch beside float32's; card vs
+    CPU at batch 2 within the CPU's own bf16-vs-float32 gap."""
+    from dpig_tpu_torch.apps.common import batch_to_device
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.apps.testers import ConditionalTransferTester
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data.synthetic import SyntheticLoader
+    from dpig_tpu_torch.utils import profiling
+
+    launches = {"model 1 training bf16": phase_train(
+        os.path.join(tmp, "m1_bf16"), "bfloat16")}
+    batch = next(SyntheticLoader(16, 128, 64, seed=5))
+    phases = {}
+    for dtype in ("float32", "bfloat16"):
+        app = Stage1App(Config(compute_dtype=dtype), torch.device("cuda"))
+        state = app.init_state()
+        phases[dtype] = profiling.train_phase_ms(
+            app, state, batch_to_device(batch, app.device), reps=3)
+        del app, state
+    for dtype, ms in phases.items():
+        print(f"[bf16] model-1 train step device ms per phase, {dtype}: "
+              f"{ {k: round(v, 3) for k, v in ms.items()} } sum "
+              f"{sum(ms.values()):.3f}", flush=True)
+
+    n, wall = _run_cli(["--model=12", "--is_train=false",
+                        "--synthetic_data=true", "--compute_dtype=bfloat16",
+                        f"--test_batch_num={BF16_BATCHES}",
+                        f"--model_dir={os.path.join(tmp, 'm12_bf16')}"])
+    launches["model 12 transfer bf16"] = n
+    print(f"[bf16] model 12 through the CLI, {BF16_BATCHES} batches: pose "
+          f"kernel launches {n}, wall {wall:.1f} s", flush=True)
+    if n != 2 * BF16_BATCHES:
+        raise AssertionError(f"pose kernel launched {n} times")
+    f32 = ConditionalTransferTester(Config(model_dir=tmp))
+    b16 = ConditionalTransferTester(Config(model_dir=tmp,
+                                           compute_dtype="bfloat16"),
+                                    params=f32.cpu_state())
+    for name, t in (("float32", f32), ("bfloat16", b16)):
+        ms, total = _stage_ms_sum(t, batch)
+        print(f"[bf16] model 12 device ms per batch of 16, {name}: "
+              f"{ {k: round(v, 3) for k, v in ms.items()} } sum {total:.3f}",
+              flush=True)
+
+    cpu = {d: ConditionalTransferTester(
+        Config(platform="cpu", model_dir=tmp, compute_dtype=d),
+        params=f32.cpu_state()) for d in ("float32", "bfloat16")}
+    small = next(SyntheticLoader(2, 128, 64, seed=99))
+    g32, s32 = _raw_outputs(cpu["float32"], small)
+    g16, s16 = _raw_outputs(cpu["bfloat16"], small)
+    gc, sc = _raw_outputs(b16, small)
+    # The D score normalizes by the statistics of a batch of 2, which
+    # amplifies the bf16 roundings of its input (g_raw, itself within the
+    # gap): on an NVIDIA H100 80GB HBM3 at 700 W the score read 0.141
+    # against a gap of 0.121 (g_raw 5.9e-3 against 7.7e-3), so the score
+    # is held to twice its gap.
+    gap = (float((g16 - g32).abs().max()), float((s16 - s32).abs().max()))
+    got = (float((gc - g16).abs().max()), float((sc - s16).abs().max()))
+    print(f"[bf16] card vs CPU at bf16, batch 2 at full width, max|diff| of "
+          f"(g_raw, score): {got[0]:.3e}, {got[1]:.3e}; the CPU's "
+          f"bf16-vs-float32 gap {gap[0]:.3e}, {gap[1]:.3e}; limits 1x and "
+          f"2x of it", flush=True)
+    if got[0] > gap[0] or got[1] > 2 * gap[1]:
+        raise AssertionError("card and CPU bf16 disagree beyond the CPU's "
+                             "own bf16-vs-float32 gap")
+    return launches
+
+
+def _s8_bound_ms(c):
+    """(bound ms, 'bytes' or 'operations', ops) of one s8 conv call `c`
+    (its arguments by name): 2*M*N*K at the dense s8 tensor rate, or each
+    input read once and the output written once at the memory rate."""
+    from dpig_tpu_torch.kernels.s8_conv import out_shape
+    x8, w8, res = c["x8"], c["w8"], c["res"]
+    b, ho, wo, co = out_shape(x8, w8, c["stride"])
+    ops = 2 * b * ho * wo * co * w8[0].numel()
+    nbytes = (x8.numel() + w8.numel() + 4 * 4 * co
+              + b * ho * wo * co * torch.empty(
+                  0, dtype=c["out_dtype"]).element_size()
+              + (0 if res is None else res.numel() * res.element_size()))
+    ops_ms, bytes_ms = ops / S8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes"), ops
+
+
+def _record_s8_calls(fn):
+    """Run fn() with every s8 conv launch recorded -> [its arguments by
+    name]."""
+    import inspect
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    calls, launch = [], sc.s8_conv_cuda
+    sig = inspect.signature(launch)
+
+    def recording(*args, **kw):
+        bound = sig.bind(*args, **kw)
+        bound.apply_defaults()
+        calls.append(dict(bound.arguments))
+        return launch(*args, **kw)
+
+    sc.s8_conv_cuda = recording
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        sc.s8_conv_cuda = launch
+    return calls
+
+
+def _s8_key(c):
+    res = c["res"]
+    return (tuple(c["x8"].shape), tuple(c["w8"].shape), c["stride"],
+            str(c["out_dtype"]).replace("torch.", ""),
+            None if res is None else str(res.dtype).replace("torch.", ""))
+
+
+def phase_s8_conv():
+    """The s8 conv on every conv shape one int8 model-12 batch at full
+    Market width gives it (the generator and the FG/BG encoder, recorded
+    from a real batch after calibration): bit-equal to its plain version,
+    kernel and plain device times, launches per batch, the card's bound
+    and its share, and cuDNN's bfloat16 conv at the same shape (the float
+    path it stands in for)."""
+    from dpig_tpu_torch.apps.common import batch_to_device
+    from dpig_tpu_torch.apps.testers import ConditionalTransferTester
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data.synthetic import SyntheticLoader
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    from dpig_tpu_torch.models.layers import conv2d_same
+
+    tester = ConditionalTransferTester(Config(inference_dtype="int8",
+                                              int8_selfcheck=False))
+    batch = batch_to_device(next(SyntheticLoader(16, 128, 64, seed=5)),
+                            tester.device)
+    tester._inference_params(batch)
+    calls = _record_s8_calls(lambda: tester.transfer_step(batch))
+    shapes = {}
+    for c in calls:
+        shapes.setdefault(_s8_key(c), []).append(c)
+    rows, worst = [], 0
+    for key, group in shapes.items():
+        c = group[0]
+        got = sc.s8_conv_cuda(**c)
+        want = sc.s8_conv_plain(**c)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, differ)
+        ms = _graph_ms(lambda: sc.s8_conv_cuda(**c))
+        plain_ms = _graph_ms(lambda: sc.s8_conv_plain(**c), reps=3, inner=2)
+        stride = c["stride"]
+        xb = c["x8"].to(torch.bfloat16).permute(0, 3, 1, 2)
+        wb = c["w8"].to(torch.bfloat16).permute(0, 3, 1, 2).contiguous()
+        cudnn_ms = _graph_ms(lambda: conv2d_same(xb, wb, None, stride))
+        bound_ms, bound_by, ops = _s8_bound_ms(c)
+        row = dict(x=key[0], w=key[1], stride=stride, out=key[3],
+                   res=key[4], launches_per_batch=len(group),
+                   differing=differ, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / ms, cudnn_bf16_ms=cudnn_ms,
+                   tops=ops / ms / 1e9)
+        rows.append(row)
+        print(f"[s8 conv] x{key[0]} w{key[1]} stride {stride} out {key[3]}"
+              f" res {key[4]}: {len(group)} per batch, differing {differ}, "
+              f"kernel {ms * 1e3:.1f} us ({ops / ms / 1e9:.1f} TOP/s), "
+              f"plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+              f"({bound_by}), {bound_ms / ms:.1%} of it; cuDNN bf16 conv "
+              f"{cudnn_ms * 1e3:.1f} us", flush=True)
+    per_batch = {k: sum(r[k] * r["launches_per_batch"] for r in rows)
+                 for k in ("ms", "plain_ms", "bound_ms", "cudnn_bf16_ms")}
+    print(f"[s8 conv] one int8 model-12 batch of 16: {len(calls)} launches "
+          f"on {len(rows)} shapes; per batch kernel {per_batch['ms']:.3f} "
+          f"ms, plain {per_batch['plain_ms']:.3f} ms, bound "
+          f"{per_batch['bound_ms']:.3f} ms "
+          f"({per_batch['bound_ms'] / per_batch['ms']:.1%}), cuDNN bf16 "
+          f"convs at the same shapes {per_batch['cudnn_bf16_ms']:.3f} ms",
+          flush=True)
+    if worst:
+        raise AssertionError("the s8 conv differs from its plain version")
+    if len(calls) != S8_ENCODER_CONVS + S8_GENERATOR_CONVS:
+        raise AssertionError(f"{len(calls)} s8 launches in one batch")
+    bound_by = max(("operations", "bytes"), key=lambda b: sum(
+        r["bound_ms"] * r["launches_per_batch"] for r in rows
+        if r["bound_by"] == b))
+    return {"name": "s8_conv", "route": "cuda",
+            "source": "dpig_tpu_torch/csrc/s8_conv.cu",
+            "replaces": "dpig_tpu/models/quant.py:71",
+            "launches": None,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": per_batch["ms"], "plain_ms": per_batch["plain_ms"],
+            "bound_ms": per_batch["bound_ms"], "bound_by": bound_by,
+            "library_ms": None, "cudnn_bf16_ms": per_batch["cudnn_bf16_ms"],
+            "per": "one int8 model-12 batch of 16 (every launch of it)",
+            "shapes": rows}
+
+
+def _run_cli_s8(argv):
+    """`_run_cli` with the s8 conv's launch count also set to 0 just before
+    and read just after; stdout kept -> (pose launches, s8 launches, wall
+    s, stdout)."""
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    sc.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        pose, wall = _run_cli(argv)
+    text = out.getvalue()
+    sys.stdout.write(text)
+    return pose, sc.launches, wall, text
+
+
+def _selfcheck(text):
+    lines = [ln for ln in text.splitlines() if "int8 self-check" in ln]
+    if not lines:
+        raise AssertionError("no int8 self-check line")
+    return float(lines[-1].split("SSIM(int8,float)=")[1].split()[0])
+
+
+def phase_int8(tmp):
+    """`--inference_dtype=int8` at the defaults (channel, island): models 12
+    and 11 through the CLI, their self-check SSIM and s8 / pose launches;
+    the fallback `dec/Conv_13,to_rgb` in island and legacy modes; device
+    ms per batch beside float32 and bf16; card vs CPU at batch 2."""
+    from dpig_tpu_torch.apps.testers import ConditionalTransferTester
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data.synthetic import SyntheticLoader
+
+    base = ["--is_train=false", "--synthetic_data=true",
+            "--inference_dtype=int8"]
+    # path: (flags, batches, s8 launches of the generator, encoder run per
+    # batch, pose launches per batch). Calibration adds one int8 encoder
+    # pass (its embeddings) and the self-check one int8 generator pass;
+    # the fallback runs the two named layers in bf16, and the legacy graph
+    # has no s8 stem.
+    runs = {
+        "model 12 transfer int8": (
+            ["--model=12"], INT8_BATCHES, S8_GENERATOR_CONVS, True, 2),
+        "model 11 sampling int8": (
+            ["--model=11", "--sample_app=true", "--pose_source=sampled"],
+            INT8_BATCHES, S8_GENERATOR_CONVS, False, 3),
+        "model 12 int8 island fallback": (
+            ["--model=12", f"--int8_fallback_layers={INT8_FALLBACK}"], 1,
+            S8_GENERATOR_CONVS - 2, True, 2),
+        "model 12 int8 legacy fallback": (
+            ["--model=12", f"--int8_fallback_layers={INT8_FALLBACK}",
+             "--int8_fallback_mode=legacy"], 1, S8_GENERATOR_CONVS - 3,
+            True, 2)}
+    s8_launches, pose_launches = {}, {}
+    for i, (path, (flags, n, gen, enc, pose_per)) in enumerate(runs.items()):
+        want_s8 = S8_ENCODER_CONVS + gen + n * (gen + (
+            S8_ENCODER_CONVS if enc else 0))
+        pose, s8, wall, text = _run_cli_s8(
+            base + flags + [f"--test_batch_num={n}",
+                            f"--model_dir={os.path.join(tmp, f'q{i}')}"])
+        ssim = _selfcheck(text)
+        print(f"[int8] {path}: {n} batches of 16, s8 conv launches {s8} "
+              f"(expected {want_s8}), pose kernel launches {pose}, wall "
+              f"{wall:.1f} s, self-check SSIM(int8,float) {ssim:.4f}",
+              flush=True)
+        if s8 != want_s8 or pose != n * pose_per + 1:  # +1: calibration
+            raise AssertionError(f"{path}: {s8} s8 launches, {pose} pose "
+                                 "launches")
+        s8_launches[path], pose_launches[path] = s8, pose
+
+    batch = next(SyntheticLoader(16, 128, 64, seed=5))
+    f32 = ConditionalTransferTester(Config(model_dir=tmp))
+    testers = {"float32": f32,
+               "bfloat16": ConditionalTransferTester(Config(
+                   model_dir=tmp, compute_dtype="bfloat16"),
+                   params=f32.cpu_state()),
+               "int8": ConditionalTransferTester(Config(
+                   model_dir=tmp, inference_dtype="int8",
+                   int8_selfcheck=False), params=f32.cpu_state())}
+    from dpig_tpu_torch.apps.common import batch_to_device
+    testers["int8"]._inference_params(batch_to_device(batch, f32.device))
+    for name, t in testers.items():
+        ms, total = _stage_ms_sum(t, batch)
+        print(f"[int8] model 12 device ms per batch of 16, {name}: "
+              f"{ {k: round(v, 3) for k, v in ms.items()} } sum {total:.3f}",
+              flush=True)
+
+    small = next(SyntheticLoader(2, 128, 64, seed=99))
+    card = ConditionalTransferTester(Config(model_dir=tmp,
+                                            inference_dtype="int8",
+                                            int8_selfcheck=False),
+                                     params=f32.cpu_state())
+    cpu = ConditionalTransferTester(Config(platform="cpu", model_dir=tmp,
+                                           inference_dtype="int8",
+                                           int8_selfcheck=False),
+                                    params=f32.cpu_state())
+    cpu32 = ConditionalTransferTester(Config(platform="cpu", model_dir=tmp),
+                                      params=f32.cpu_state())
+    for t in (card, cpu):
+        t._inference_params(batch_to_device(small, t.device))
+    scale_err = max(float((card.quant_gen["act_scales"][k].cpu() - v).abs()
+                          .max() / v.abs().max())
+                    for k, v in cpu.quant_gen["act_scales"].items())
+    g_card, _ = _raw_outputs(card, small)
+    g_cpu, _ = _raw_outputs(cpu, small)
+    g_f32, _ = _raw_outputs(cpu32, small)
+    diff, gap = (g_card - g_cpu).abs(), (g_cpu - g_f32).abs()
+    print(f"[int8] card vs CPU at int8, batch 2 at full width, each "
+          f"calibrating its own tables (generator scales within "
+          f"{scale_err:.2e} of each layer's largest: statistics of "
+          f"embeddings the two "
+          f"int8 encoders round differently); g_raw max|diff| "
+          f"{float(diff.max()):.3e}, mean {float(diff.mean()):.3e}; limit: "
+          f"the CPU's int8-vs-float32 gap, max {float(gap.max()):.3e}, "
+          f"mean {float(gap.mean()):.3e}", flush=True)
+    if float(diff.max()) > float(gap.max()) or \
+            float(diff.mean()) > float(gap.mean()):
+        raise AssertionError("card and CPU int8 disagree beyond the limits")
+    return s8_launches, pose_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card",
@@ -1383,13 +1747,19 @@ def main() -> int:
         stage2 = phase_stage2_train(tmp, os.path.join(tmp, "m1"))
         phase_stage2_parity(os.path.join(tmp, "stage2_parity"))
         data = phase_data(tmp, os.path.join(tmp, "m1"))
+        bf16 = phase_bf16(tmp)
+        s8 = phase_s8_conv()
+        s8_by_path, int8_pose = phase_int8(tmp)
     by_path = {"model 12 transfer": model12, **sampling,
-               "model 1 training": train, **stage2, **data}
+               "model 1 training": train, **stage2, **data, **bf16,
+               **int8_pose}
     kernel["launches"] = sum(by_path.values())
     kernel["launches_by_path"] = by_path
+    s8["launches"] = sum(s8_by_path.values())
+    s8["launches_by_path"] = s8_by_path
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, s8]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -24,6 +24,7 @@ from ..train.state import GanState
 from .common import l1_loss, masked_l1_loss, pose_maps_from_batch, select_parts
 
 GAN_MODE = "dcgan"  # trainer.py:257
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TRAIN_PHASES = ("inputs", "g_forward", "g_backward", "g_update",
                 "g_reforward", "d_forward_backward", "d_update")
 
@@ -55,9 +56,13 @@ class Stage1App:
     from a CPU torch.Generator seeded with `cfg.random_seed`, so the CPU
     and the card get the same numbers). `disc=False` builds no D (the
     Stage-II samplers, and the testers given every sub-tree they need but
-    no D). The app owns the precision: `compute_dtype` float32 runs every
-    forward, and the whole train step with its backward passes and
-    optimizer updates, under `full_float32`.
+    no D). The app owns the precision: `--compute_dtype` is the compute
+    dtype of every Stage-I net (stage1_app.py:39-63; the parameters, the
+    gradients and the optimizer stay float32), and every forward, and the
+    whole train step with its backward passes and optimizer updates, runs
+    under `full_float32`, so the float32 path is float32. The embeddings,
+    g_raw and the D logits come back in float32 (exact: every consumer of
+    the JAX package's bfloat16 ones promotes them to float32 first).
     """
 
     def __init__(self, cfg: Config, device: torch.device,
@@ -66,27 +71,28 @@ class Stage1App:
             raise NotImplementedError(
                 "the 256x256 family (models 101-104/1001/1002) is not ported "
                 'to dpig_tpu_torch yet (ROADMAP §1, "The 256 family")')
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"--compute_dtype={cfg.compute_dtype}: dpig_tpu_torch runs "
-                'float32 only so far (ROADMAP §1, "The bfloat16 compute '
-                'path")')
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"--compute_dtype must be one of "
+                             f"{sorted(COMPUTE_DTYPES)}, got "
+                             f"{cfg.compute_dtype!r}")
         self.cfg = cfg
         self.device = device
+        self.dtype = dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self.encoder = RoiEncoderFgBg(
             cfg.img_H, cfg.img_W, part_num=cfg.roi_part_num,
             z_num=cfg.roi_z_num, repeat_num=cfg.repeat_num,
-            hidden_num=cfg.conv_hidden_num, roi_size=48)
+            hidden_num=cfg.conv_hidden_num, roi_size=48, dtype=dtype)
         self.generator = UAEGenerator(
             cfg.img_H, cfg.img_W,
             emb_dim=cfg.roi_part_num * cfg.roi_z_num + cfg.roi_z_num * 4,
             pose_ch=cfg.keypoint_num, out_channels=3, z_num=cfg.z_num,
-            repeat_num=cfg.repeat_num, hidden_num=cfg.conv_hidden_num)
+            repeat_num=cfg.repeat_num, hidden_num=cfg.conv_hidden_num,
+            dtype=dtype)
         modules = {"Encoder": self.encoder, "ID_AE": self.generator}
         self.disc = None
         if disc:
             self.disc = get_discriminator(cfg.D_arch, cfg.img_H, cfg.img_W,
-                                          n_stages=4)
+                                          n_stages=4, dtype=dtype)
             modules["Discriminator"] = self.disc
         state = state or {}
         gen = torch.Generator().manual_seed(cfg.random_seed)
@@ -102,12 +108,12 @@ class Stage1App:
     # ------------------------------------------------------------ forward
     @full_float32()
     def _encode(self, x, mask, bbox, vis) -> torch.Tensor:
-        return self.encoder(x, mask, bbox, vis)
+        return self.encoder(x, mask, bbox, vis).to(torch.float32)
 
     @full_float32()
     def _generate(self, embs, pose) -> torch.Tensor:
         g_raw, _ = self.generator(embs, pose)
-        return g_raw
+        return g_raw.to(torch.float32)
 
     def g_forward(self, x, pose, mask, bbox, vis
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -118,7 +124,8 @@ class Stage1App:
     @full_float32()
     def _disc_apply(self, img, train: bool = True,
                     update_stats: bool = False) -> torch.Tensor:
-        return self.disc(img, train=train, update_stats=update_stats)
+        return self.disc(img, train=train,
+                         update_stats=update_stats).to(torch.float32)
 
     # --------------------------------------------------------------- train
     def init_state(self) -> GanState:

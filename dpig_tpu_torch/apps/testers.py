@@ -31,6 +31,16 @@ do: a finite test split that ends first raises StopIteration out of
 Work whose result a step does not use is not done (XLA drops it from the
 JAX package's jitted steps): the ROI encoder when every appearance code is
 sampled, the mappers when none is, and the pose AE's radius-0 preview.
+
+Precision (testers.py:148-257): `--compute_dtype=bfloat16` runs the
+Stage-I nets in bfloat16 and the generator as `quant.uae_forward_bf16`;
+`--inference_dtype=int8` (models 11, 12, 13) calibrates an int8 generator
+and ROI encoder on the first batch in `run()` (`_inference_params`; the
+sampling testers add a batch of mapper-sampled embeddings drawn from a
+CPU torch.Generator seeded with `--random_seed`, or the noise the caller
+passes) and prints the SSIM of the int8 output against the float one on
+that batch (`--int8_selfcheck`). Interpolation has no int8 path, as in
+JAX.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ from ..bridge import STAGE1_SUBTREES
 from ..config import Config
 from ..eval.metrics import ssim_images
 from ..models.layers import init_weights
+from ..models import quant as quant_mod
 from ..models.mappers import GaussianMapper, sample_mapper_noise
 from ..ops.image import slerp
 from ..ops.pose import pose_rcv_normalize, render_pose_maps
@@ -54,6 +65,31 @@ from .common import (batch_to_device, pose_maps_from_batch,
                      select_device, select_parts)
 from .stage1_app import Stage1App, full_float32
 from .stage1_pose import POSE_Z, Stage1PoseApp
+
+
+def _parse_int8_calibration(cfg: Config) -> Dict:
+    """--int8_calibration -> QuantizedGenerator calibration kwargs
+    (testers.py:42-53)."""
+    spec = cfg.int8_calibration or "channel"
+    if spec.startswith("percentile:"):
+        return {"calib_method": "percentile",
+                "calib_percentile": float(spec.split(":", 1)[1])}
+    if spec == "channel":
+        return {"calib_granularity": "channel"}
+    if spec in ("absmax", "entropy"):
+        return {"calib_method": spec}
+    raise ValueError(f"unknown --int8_calibration {spec!r} (expected "
+                     "absmax | percentile:<p> | entropy | channel)")
+
+
+def _parse_int8_fallback(cfg: Config) -> Tuple[frozenset, frozenset]:
+    """--int8_fallback_layers -> (encoder, generator) name sets: 'stem/',
+    'fg/' and 'bg/' names are the encoder's (testers.py:56-65)."""
+    names = frozenset(n.strip() for n in cfg.int8_fallback_layers.split(",")
+                      if n.strip())
+    enc = frozenset(n for n in names
+                    if n.split("/")[0] in ("stem", "fg", "bg"))
+    return enc, names - enc
 
 
 def _save_dir_tree(root: str, names) -> Dict[str, str]:
@@ -88,12 +124,9 @@ class _TesterBase:
     MAPPERS = ("PoseGaussian", "Gaussian_FC_Fg", "Gaussian_FC_Bg")
 
     def __init__(self, cfg: Config, params: Optional[Mapping] = None):
-        if cfg.inference_dtype == "int8":
-            raise NotImplementedError(
-                "--inference_dtype=int8 needs models/quant.py and its s8 conv "
-                "kernel, not ported to dpig_tpu_torch yet (ROADMAP §1, "
-                '"The int8 serving path")')
         self.cfg = cfg
+        self.quant_enc: Optional[Dict] = None  # int8 tables, `run()` sets
+        self.quant_gen: Optional[Dict] = None
         self.device = select_device(cfg.platform)
         if params is None:
             params = compose_pretrained(cfg)
@@ -155,16 +188,111 @@ class _TesterBase:
         cfg = self.cfg
         bbox, vis = select_parts(batch["part_bbox"], batch["part_vis"],
                                  cfg.roi_part_num)
+        if self.quant_enc is not None:
+            with full_float32():
+                return quant_mod.roi_fgbg_forward(
+                    self.stage1.encoder, batch["x"], batch["mask_r6"], bbox,
+                    vis, cfg.repeat_num, cfg.conv_hidden_num,
+                    part_num=cfg.roi_part_num, quant=self.quant_enc)
         return self.stage1._encode(batch["x"], batch["mask_r6"], bbox, vis)
 
+    @full_float32()
     def _generate(self, embs: torch.Tensor,
                   pose_maps: torch.Tensor) -> torch.Tensor:
+        """(testers.py:148-177) The int8 generator, chained or, for a
+        fallback set under --int8_fallback_mode=legacy, the per-layer
+        graph; else the bfloat16 raw-param forward; else the module."""
+        cfg = self.cfg
+        gen = self.stage1.generator
+        if self.quant_gen is not None:
+            _, gen_fb = _parse_int8_fallback(cfg)
+            g_raw, _ = quant_mod.uae_forward(
+                gen, embs, pose_maps, cfg.repeat_num, cfg.conv_hidden_num,
+                quant=self.quant_gen, chained=not gen_fb
+                or cfg.int8_fallback_mode == "island")
+            return g_raw
+        if self.stage1.dtype == torch.bfloat16:
+            g_raw, _ = quant_mod.uae_forward_bf16(
+                gen, embs, pose_maps, cfg.repeat_num, cfg.conv_hidden_num)
+            return g_raw
         return self.stage1._generate(embs, pose_maps)
+
+    @torch.inference_mode()
+    def _inference_params(self, first_batch: Mapping[str, torch.Tensor],
+                          calib_noise: Optional[Mapping] = None) -> None:
+        """With --inference_dtype=int8 (testers.py:179-257): calibrate the
+        int8 ROI encoder and then the int8 generator on the first batch
+        (device tensors), the generator also on mapper-sampled embeddings
+        where this tester samples them (`_sampled_calib_embs`, from
+        `calib_noise`, else `draw_noise` of a CPU generator seeded with
+        --random_seed), set `quant_enc` / `quant_gen`, and print the
+        int8-vs-float SSIM on the batch (--int8_selfcheck). Otherwise
+        nothing."""
+        cfg = self.cfg
+        if cfg.inference_dtype != "int8":
+            return
+        enc_fallback, gen_fallback = _parse_int8_fallback(cfg)
+        calib = _parse_int8_calibration(cfg)
+        if cfg.int8_fallback_mode not in ("island", "legacy"):
+            raise ValueError(f"unknown --int8_fallback_mode "
+                             f"{cfg.int8_fallback_mode!r}")
+        bbox, vis = select_parts(first_batch["part_bbox"],
+                                 first_batch["part_vis"], cfg.roi_part_num)
+        with full_float32():
+            qe = quant_mod.QuantizedEncoder(
+                self.stage1.encoder, cfg.repeat_num, cfg.conv_hidden_num,
+                part_num=cfg.roi_part_num, bf16_layers=enc_fallback,
+                calib_granularity=calib.get("calib_granularity", "tensor"))
+            qe.calibrate([(first_batch["x"], first_batch["mask_r6"], bbox,
+                           vis)])
+        self.quant_enc = qe.quant
+        embs = self._encode_app(first_batch)
+        pose = pose_maps_from_batch(first_batch, cfg)
+        b = first_batch["x"].shape[0]
+        if calib_noise is None:
+            calib_noise = self.draw_noise(
+                torch.Generator().manual_seed(cfg.random_seed), b)
+        calib_embs, calib_pose = [embs], [pose]
+        sampled = self._sampled_calib_embs(calib_noise)
+        if sampled is not None:
+            calib_embs.append(sampled)
+            calib_pose.append(pose)
+        with full_float32():
+            qg = quant_mod.QuantizedGenerator(
+                self.stage1.generator, cfg.repeat_num, cfg.conv_hidden_num,
+                bf16_layers=gen_fallback, **calib)
+            qg.calibrate(calib_embs, calib_pose)
+        self.quant_gen = qg.quant
+        print(f"[*] {type(self).__name__}: int8 PTQ inference "
+              f"(calibrated on the first batch)", flush=True)
+        if cfg.int8_selfcheck:
+            g_q = self._generate(embs, pose).cpu().numpy()
+            with full_float32():
+                g_f = quant_mod.uae_forward(
+                    self.stage1.generator, embs, pose, cfg.repeat_num,
+                    cfg.conv_hidden_num)[0].cpu().numpy()
+            to255 = lambda a: np.clip((a + 1.0) * 127.5, 0, 255)  # noqa: E731
+            self.int8_fidelity = float(ssim_images(to255(g_q),
+                                                   to255(g_f)).mean())
+            print(f"[*] int8 self-check: SSIM(int8,float)="
+                  f"{self.int8_fidelity:.4f} on the calibration batch",
+                  flush=True)
+
+    def _sampled_calib_embs(self, noise: Mapping[str, torch.Tensor]
+                            ) -> Optional[torch.Tensor]:
+        """An extra int8-calibration batch of mapper-sampled appearance
+        codes where this tester feeds them (testers.py:259-263,265-275);
+        None: the encoder's alone."""
+        return None
+
+    def _market_mapper_embs(self, noise: Mapping[str, torch.Tensor]
+                            ) -> torch.Tensor:
+        return torch.cat([self._map("Gaussian_FC_Fg", noise["fg"]),
+                          self._map("Gaussian_FC_Bg", noise["bg"])], -1)
 
     @full_float32()
     def _map(self, name: str, noise: torch.Tensor) -> torch.Tensor:
-        """The Gaussian mapper `name` on its noise (testers.py:265-275 does
-        FG and BG at once for the int8 calibration, not ported)."""
+        """The Gaussian mapper `name` on its noise."""
         return self.mappers[name](noise)
 
     def _disc_score(self, g_raw: torch.Tensor) -> torch.Tensor:
@@ -213,6 +341,11 @@ class FullSamplingTester(_TesterBase):
     SUBTREES = STAGE1_SUBTREES + _TesterBase.MAPPERS + ("PoseAE",)
     DEFAULT_BATCHES = 751  # tester.py:311
 
+    def _sampled_calib_embs(self, noise):
+        if not (self.cfg.sample_app or self.cfg.one_app_per_batch):
+            return None
+        return self._market_mapper_embs(noise)
+
     @torch.inference_mode()
     def sample_step(self, batch: Mapping[str, torch.Tensor],
                     noise: Mapping[str, torch.Tensor],
@@ -252,8 +385,11 @@ class FullSamplingTester(_TesterBase):
                                          "pose_target", "G_pose", "mask",
                                          "mask_target"])
         gen = torch.Generator().manual_seed(0)  # tf.set_random_seed(0)
+        first = next(loader)
+        self._inference_params(batch_to_device(first, self.device))
         for i in range(n):
-            batch = next(loader)  # a finite split ends: StopIteration
+            # a finite split ends: StopIteration
+            batch = first if i == 0 else next(loader)
             jb = batch_to_device(batch, self.device)
             noise = self.draw_noise(gen, batch["x"].shape[0])
             g, pose_maps, score, g_rcv = self.sample_step(jb, noise,
@@ -299,6 +435,12 @@ class FactorSamplingTester(_TesterBase):
     SUBTREES = FullSamplingTester.SUBTREES
     DEFAULT_BATCHES = 400  # tester.py:475
 
+    def _sampled_calib_embs(self, noise):
+        cfg = self.cfg
+        if not (cfg.sample_fg or cfg.sample_bg or cfg.sample_app):
+            return None
+        return self._market_mapper_embs(noise)
+
     @torch.inference_mode()
     def sample_step(self, batch: Mapping[str, torch.Tensor],
                     noise: Mapping[str, torch.Tensor]):
@@ -337,8 +479,10 @@ class FactorSamplingTester(_TesterBase):
             f"SamplePose{cfg.sample_pose}_pretrain_{n}x{cfg.batch_size}")
         dirs = _save_dir_tree(out_root, ["x", "G", "pose"])
         gen = torch.Generator().manual_seed(0)
+        first = next(loader)
+        self._inference_params(batch_to_device(first, self.device))
         for i in range(n):
-            batch = next(loader)
+            batch = first if i == 0 else next(loader)
             jb = batch_to_device(batch, self.device)
             g, pose_maps, _ = self.sample_step(
                 jb, self.draw_noise(gen, batch["x"].shape[0]))
@@ -375,8 +519,10 @@ class ConditionalTransferTester(_TesterBase):
         dirs = _save_dir_tree(out_root, ["x", "x_target", "G", "pose",
                                          "pose_target", "mask", "mask_target"])
         ssims = []
+        first = next(loader)
+        self._inference_params(batch_to_device(first, self.device))
         for i in range(n):
-            batch = next(loader)
+            batch = first if i == 0 else next(loader)
             jb = batch_to_device(batch, self.device)
             g, pose_t, _score = self.transfer_step(jb)
             with torch.inference_mode():

@@ -31,6 +31,12 @@ the port's checkpoint tree (`train/checkpoint.py`): params and frozen
 nets through `params_from_flax`, the D's `d_stats` as its BatchNorm
 `running_mean` / `running_var`, and each optax state as the port
 optimizer's `{'count', 'mu', 'nu'}` (`opt_state_from_optax`).
+
+`quant_from_jax(quant)` turns a quant table of the JAX package's
+`models/quant.py` (`QuantizedGenerator.quant` / `QuantizedEncoder.quant`)
+into the port's (`dpig_tpu_torch/models/quant.py`): each s8 kernel HWIO
+-> [Co,kh,kw,Ci], the scales as float32 tensors, the `act_folded` /
+`act_pinned` key flags as booleans.
 """
 from __future__ import annotations
 
@@ -149,3 +155,24 @@ def state_from_orbax(tree: Mapping) -> Dict[str, Any]:
     if frozen:
         out["frozen_params"] = params_from_flax(frozen, list(frozen))
     return out
+
+
+def quant_from_jax(quant: Mapping, device: torch.device = torch.device("cpu")
+                   ) -> Dict[str, Any]:
+    """A JAX int8 quant table -> the port's, on `device`."""
+    weights = {}
+    for name, (w8, w_scale) in quant["weights"].items():
+        w8 = np.asarray(w8)
+        if w8.dtype != np.int8 or w8.ndim != 4:
+            raise ValueError(f"{name}: expected an HWIO int8 kernel, got "
+                             f"{w8.dtype} {w8.shape}")
+        weights[name] = (
+            torch.from_numpy(np.ascontiguousarray(
+                w8.transpose(3, 0, 1, 2))).to(device),
+            torch.from_numpy(np.array(w_scale, np.float32)).to(device))
+    return {"weights": weights,
+            "act_scales": {k: torch.from_numpy(np.array(v, np.float32)
+                                               ).to(device)
+                           for k, v in quant["act_scales"].items()},
+            "act_folded": "act_folded" in quant,
+            "act_pinned": "act_pinned" in quant}

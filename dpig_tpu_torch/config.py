@@ -89,7 +89,7 @@ class Config:
     random_seed: int = 123
 
     # Extras of the JAX package (no reference equivalent)
-    compute_dtype: str = "float32"      # 'float32' (ported) | 'bfloat16'
+    compute_dtype: str = "float32"      # 'float32' | 'bfloat16' (Stage-I nets)
     mesh_axis: str = "data"
     test_batch_num: int = 0             # 0 -> model-specific default
     keypoint_num: int = 18
@@ -107,7 +107,7 @@ class Config:
     # JAX rasterizer choice ('xla' | 'pallas'); the port always runs its
     # CUDA rasterizer for tensors on the card.
     pose_raster: str = "xla"
-    inference_dtype: str = "bf16"       # 'bf16' (float modules) | 'int8'
+    inference_dtype: str = "bf16"       # 'bf16' (float nets) | 'int8'
     int8_fallback_layers: str = ""
     int8_fallback_mode: str = "island"
     int8_calibration: str = "channel"

@@ -17,24 +17,27 @@ from .layers import D_INIT, BatchNorm, Conv, Dense, flatten_nhwc, leaky_relu
 class DCGANDiscriminator(nn.Module):
 
     def __init__(self, img_h: int, img_w: int, dim: int = 64,
-                 n_stages: int = 4, in_ch: int = 3):
+                 n_stages: int = 4, in_ch: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_stages = n_stages
         ch_in, ch, h, w = in_ch, dim, img_h, img_w
         for stage in range(n_stages):
-            self.add_module(f"Conv_{stage}",
-                            Conv(ch_in, ch, 5, stride=2, init=D_INIT))
+            self.add_module(f"Conv_{stage}", Conv(ch_in, ch, 5, stride=2,
+                                                  init=D_INIT, dtype=dtype))
             if stage > 0:
-                self.add_module(f"BatchNorm_{stage - 1}", BatchNorm(ch))
+                self.add_module(f"BatchNorm_{stage - 1}",
+                                BatchNorm(ch, dtype=dtype))
             h, w = -(-h // 2), -(-w // 2)
             ch_in = ch
             if stage < n_stages - 1:
                 ch = min(ch * 2, dim * 8)
-        self.logit = Dense(h * w * ch_in, 1, init=D_INIT)
+        self.logit = Dense(h * w * ch_in, 1, init=D_INIT, dtype=dtype)
 
     def forward(self, x: torch.Tensor, train: bool = True,
                 update_stats: bool = False) -> torch.Tensor:
-        """x [B, H, W, 3] NHWC -> logits [B]. `train=True` (what the
+        """x [B, H, W, 3] NHWC -> logits [B] in the compute dtype (flax's
+        `dtype=`, bfloat16 with `--compute_dtype=bfloat16`). `train=True` (what the
         testers and the G step use) normalizes by batch statistics and
         updates nothing; `update_stats=True` (the D step) also moves each
         BatchNorm's running statistics, as flax's mutable apply does."""
@@ -67,11 +70,12 @@ class FCDiscriminator(nn.Module):
         return self.out(x).reshape(-1)
 
 
-def get_discriminator(arch: str, img_h: int, img_w: int,
-                      n_stages: int = 4) -> DCGANDiscriminator:
+def get_discriminator(arch: str, img_h: int, img_w: int, n_stages: int = 4,
+                      dtype: torch.dtype = torch.float32
+                      ) -> DCGANDiscriminator:
     """The 'dcgan'-mode DCGAN D of discriminators.py:135 (`--D_arch`)."""
     if arch != "DCGAN":
         raise NotImplementedError(
             f"--D_arch={arch}: only DCGAN is ported to dpig_tpu_torch "
             '(ROADMAP §1, "The remaining CLI modes and options")')
-    return DCGANDiscriminator(img_h, img_w, n_stages=n_stages)
+    return DCGANDiscriminator(img_h, img_w, n_stages=n_stages, dtype=dtype)

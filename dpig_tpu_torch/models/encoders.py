@@ -2,7 +2,9 @@
 reference models.py:390-471), the Market Stage-I encoder.
 
 The P per-part crops are folded into the batch axis ([P*B, C, roi, roi])
-so the weight-shared ROI tower runs as one conv stack.
+so the weight-shared ROI tower runs as one conv stack. `dtype` is the
+compute dtype of every conv and Dense (flax's `dtype=`); the output is in
+it too.
 """
 from __future__ import annotations
 
@@ -20,12 +22,13 @@ class _Stem(nn.Module):
     """Stem conv + one res block (encoders.py:27-43; models.py:396-400)."""
 
     def __init__(self, in_ch: int, hidden_num: int,
-                 activation: Callable = F.relu):
+                 activation: Callable = F.relu,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.activation = activation
-        self.Conv_0 = Conv(in_ch, hidden_num, 3)
-        self.Conv_1 = Conv(hidden_num, hidden_num, 3)
-        self.Conv_2 = Conv(hidden_num, hidden_num, 3)
+        self.Conv_0 = Conv(in_ch, hidden_num, 3, dtype=dtype)
+        self.Conv_1 = Conv(hidden_num, hidden_num, 3, dtype=dtype)
+        self.Conv_2 = Conv(hidden_num, hidden_num, 3, dtype=dtype)
 
     def forward(self, x):
         act = self.activation
@@ -49,12 +52,14 @@ class _RoiTower(nn.Module):
     (encoders.py:46-59; models.py:420-431)."""
 
     def __init__(self, z_num: int, repeat_num: int, hidden_num: int,
-                 roi_size: int, activation: Callable = F.relu):
+                 roi_size: int, activation: Callable = F.relu,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ConvBlockTower_0 = ConvBlockTower(repeat_num, hidden_num,
-                                               activation)
+                                               activation, dtype=dtype)
         self.Dense_0 = Dense(tower_out_features(roi_size, roi_size,
-                                                repeat_num, hidden_num), z_num)
+                                                repeat_num, hidden_num), z_num,
+                             dtype=dtype)
 
     def forward(self, rois):  # [P*B, C, roi, roi]
         return self.Dense_0(flatten_nhwc(self.ConvBlockTower_0(rois)))
@@ -84,16 +89,18 @@ class RoiEncoderFgBg(nn.Module):
     def __init__(self, img_h: int, img_w: int, part_num: int = 7,
                  z_num: int = 32, repeat_num: int = 5, hidden_num: int = 128,
                  roi_size: int = 48, activation: Callable = F.relu,
-                 in_ch: int = 3):
+                 in_ch: int = 3, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.part_num = part_num
         self.roi_size = roi_size
-        self._Stem_0 = _Stem(in_ch, hidden_num, activation)
+        self._Stem_0 = _Stem(in_ch, hidden_num, activation, dtype)
         self.fg_tower = _RoiTower(z_num, repeat_num, hidden_num, roi_size,
-                                  activation)
-        self.bg_tower = ConvBlockTower(repeat_num, hidden_num, activation)
+                                  activation, dtype)
+        self.bg_tower = ConvBlockTower(repeat_num, hidden_num, activation,
+                                       dtype=dtype)
         self.bg_fc = Dense(tower_out_features(img_h, img_w, repeat_num,
-                                              hidden_num), z_num * 4)
+                                              hidden_num), z_num * 4,
+                           dtype=dtype)
 
     def forward(self, x, fg_mask, part_bbox, part_vis):
         """x [B,H,W,3], fg_mask [B,H,W,1] (NHWC), part_bbox [B,P,4] int,

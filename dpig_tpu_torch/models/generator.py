@@ -11,7 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .encoders import tower_out_features
-from .layers import Conv, ConvBlockTower, Dense, flatten_nhwc
+from .layers import Conv, ConvBlockTower, Dense, conv2d_same, flatten_nhwc
 
 
 def _border_classes(n: int, device) -> torch.Tensor:
@@ -23,14 +23,18 @@ def _border_classes(n: int, device) -> torch.Tensor:
     return cls
 
 
-def _stem_bias_map(kernel: torch.Tensor, bias: torch.Tensor,
-                   embs: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def stem_bias_map_nhwc(kernel: torch.Tensor, bias: torch.Tensor,
+                       embs: torch.Tensor, h: int, w: int,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Contribution of the spatially constant embedding to the stem conv,
-    plus the conv bias (generator.py:35-77): [B, hid, H, W].
+    plus the conv bias (generator.py:35-77): [B, H, W, hid] in `dtype`.
 
     kernel is OIHW [hid, D+P, 3, 3]. A 3x3 SAME conv of a constant map sees
     one of 9 tap subsets at each pixel (3 row x 3 col border classes), so
     the embedding contributes 9 per-sample vectors selected by position.
+    They are summed in float32 and rounded to `dtype`, and the bias added
+    in `dtype`, as in JAX. The int8 stem (`models/quant.py`) adds this map
+    in float32 to its s8 pose conv.
     """
     d = embs.shape[-1]
     k_emb = kernel[:, :d].to(torch.float32)                  # [hid,D,3,3]
@@ -38,22 +42,24 @@ def _stem_bias_map(kernel: torch.Tensor, bias: torch.Tensor,
     t = torch.stack([
         torch.stack([k_emb[:, :, taps[r], taps[c]].sum((2, 3))
                      for c in range(3)]) for r in range(3)])  # [3,3,hid,D]
-    biases = torch.einsum("bd,rchd->brch", embs.to(torch.float32), t)
+    biases = torch.einsum("bd,rchd->brch", embs.to(torch.float32),
+                          t).to(dtype)
     rows = _border_classes(h, embs.device)
     cols = _border_classes(w, embs.device)
-    bias_map = biases[:, rows][:, :, cols]                    # [B,H,W,hid]
-    return bias_map.permute(0, 3, 1, 2) + bias[None, :, None, None]
+    return biases[:, rows][:, :, cols] + bias.to(dtype)       # [B,H,W,hid]
 
 
 def _constant_input_stem(kernel: torch.Tensor, bias: torch.Tensor,
-                         embs: torch.Tensor,
-                         pose: torch.Tensor) -> torch.Tensor:
+                         embs: torch.Tensor, pose: torch.Tensor,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Stem conv of concat(tile(embs), pose) without the tiled map
-    (generator.py:16-32). pose is NCHW [B,P,H,W]; returns NCHW."""
+    (generator.py:16-32), in `dtype`. pose is NCHW [B,P,H,W]; returns
+    NCHW."""
     d = embs.shape[-1]
-    pose_part = F.conv2d(pose, kernel[:, d:], None, 1, 1)
-    return pose_part + _stem_bias_map(kernel, bias, embs, pose.shape[2],
-                                      pose.shape[3])
+    pose_part = conv2d_same(pose.to(dtype), kernel[:, d:].to(dtype), None)
+    return pose_part + stem_bias_map_nhwc(
+        kernel, bias, embs, pose.shape[2], pose.shape[3],
+        dtype).permute(0, 3, 1, 2)
 
 
 class UAEGenerator(nn.Module):
@@ -64,46 +70,52 @@ class UAEGenerator(nn.Module):
     downsamples; bottleneck FC to z_num; FC back to (h_min, w_min, hidden);
     decoder stage idx concats [x, skip(repeat-1-idx)], runs two full-width
     convs with residual, then NN-upscale + 1x1 conv to
-    hidden*(repeat-idx-1); a final 3x3 conv `to_rgb`.
+    hidden*(repeat-idx-1); a final 3x3 conv `to_rgb`. Every conv, Dense
+    and the stem compute in `dtype` (flax's `dtype=`); the outputs are in
+    it too.
     """
 
     def __init__(self, img_h: int, img_w: int, emb_dim: int, pose_ch: int,
                  out_channels: int = 3, z_num: int = 64, repeat_num: int = 5,
-                 hidden_num: int = 128, activation: Callable = F.relu):
+                 hidden_num: int = 128, activation: Callable = F.relu,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.repeat_num = repeat_num
         self.hidden_num = hidden_num
         self.activation = activation
+        self.dtype = dtype
         self.stem_kernel = nn.Parameter(
             torch.empty(hidden_num, emb_dim + pose_ch, 3, 3))
         self.stem_bias = nn.Parameter(torch.empty(hidden_num))
         self.ConvBlockTower_0 = ConvBlockTower(repeat_num, hidden_num,
-                                               activation, collect_skips=True)
+                                               activation, collect_skips=True,
+                                               dtype=dtype)
         flat = tower_out_features(img_h, img_w, repeat_num, hidden_num)
         self.h_min, self.w_min = img_h, img_w
         for _ in range(repeat_num - 1):
             self.h_min, self.w_min = -(-self.h_min // 2), -(-self.w_min // 2)
-        self.bottleneck = Dense(flat, z_num)
-        self.unbottleneck = Dense(z_num, self.h_min * self.w_min * hidden_num)
+        self.bottleneck = Dense(flat, z_num, dtype=dtype)
+        self.unbottleneck = Dense(z_num, self.h_min * self.w_min * hidden_num,
+                                  dtype=dtype)
         i = 0
         x_ch = hidden_num
         for idx in range(repeat_num):
             ch = x_ch + hidden_num * (repeat_num - idx)
-            self.add_module(f"Conv_{i}", Conv(ch, ch, 3))
-            self.add_module(f"Conv_{i + 1}", Conv(ch, ch, 3))
+            self.add_module(f"Conv_{i}", Conv(ch, ch, 3, dtype=dtype))
+            self.add_module(f"Conv_{i + 1}", Conv(ch, ch, 3, dtype=dtype))
             i += 2
             if idx < repeat_num - 1:
                 x_ch = hidden_num * (repeat_num - idx - 1)
-                self.add_module(f"Conv_{i}", Conv(ch, x_ch, 1))
+                self.add_module(f"Conv_{i}", Conv(ch, x_ch, 1, dtype=dtype))
                 i += 1
-        self.to_rgb = Conv(ch, out_channels, 3)
+        self.to_rgb = Conv(ch, out_channels, 3, dtype=dtype)
 
     def forward(self, embs: torch.Tensor, pose: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """embs [B, D], pose [B, H, W, P] (NHWC) -> (out [B, H, W, 3], z)."""
         act = self.activation
         x = act(_constant_input_stem(self.stem_kernel, self.stem_bias, embs,
-                                     pose.permute(0, 3, 1, 2)))
+                                     pose.permute(0, 3, 1, 2), self.dtype))
         x, skips = self.ConvBlockTower_0(x)
         b = x.shape[0]
         z = self.bottleneck(flatten_nhwc(x))

@@ -8,6 +8,14 @@ onto them path for path.
 Initializers: Xavier-uniform for generator-side nets (slim defaults in the
 reference), normal(0.02) for discriminators (tflib set_weights_stdev(0.02),
 wgan_gp.py:411-413), zero biases; drawn from an explicit torch.Generator.
+
+Compute dtype (`dtype`, flax's `dtype=` of `nn.Conv` / `nn.Dense` /
+`nn.BatchNorm`): parameters stay float32 and the input, kernel and bias are
+cast to it. In bfloat16 the conv or matmul output is rounded to bfloat16
+and the bfloat16 bias added after, a second rounding, as flax does
+(`F.conv2d(x, w, b)` would add the bias before the one rounding). The
+norms take their statistics and normalize in float32 and round the result
+to the compute dtype (flax's `_compute_stats` / `_normalize`).
 """
 from __future__ import annotations
 
@@ -38,7 +46,18 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int = 1
                 ) -> torch.Tensor:
-    """NCHW conv with XLA SAME padding; weight OIHW."""
+    """NCHW conv with XLA SAME padding; weight OIHW.
+
+    A bfloat16 conv sums its exact products in float32 and rounds the
+    output once. On the CPU it runs as exactly that, a float32 conv of the
+    bfloat16 values rounded to bfloat16: PyTorch's oneDNN bfloat16 conv
+    returns wrong sums at some shapes (the Market DCGAN D's last stage at
+    32x16, 256 -> 512 channels, 5x5 stride 2 on a padded 7x5 input, is off
+    by the output's own magnitude). CUDA tensors go to cuDNN's bfloat16
+    conv."""
+    if x.dtype == torch.bfloat16 and not x.is_cuda:
+        return conv2d_same(x.to(torch.float32), weight.to(torch.float32),
+                           bias, stride).to(x.dtype)
     ph = same_pads(x.shape[2], weight.shape[2], stride)
     pw = same_pads(x.shape[3], weight.shape[3], stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
@@ -48,27 +67,41 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int = 1
 
 
 class Conv(nn.Module):
-    """flax `nn.Conv` twin: square kernel, SAME padding, bias."""
+    """flax `nn.Conv` twin: square kernel, SAME padding, bias, computed in
+    `dtype`."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 init: str = XAVIER):
+                 init: str = XAVIER, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(out_ch))
         self.stride = stride
         self.init = init
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_same(x, self.weight, self.bias, self.stride)
+        dt = self.dtype
+        if dt == torch.float32:
+            return conv2d_same(x.to(dt), self.weight, self.bias, self.stride)
+        y = conv2d_same(x.to(dt), self.weight.to(dt), None, self.stride)
+        return y + self.bias.to(dt)[:, None, None]
 
 
 class Dense(nn.Linear):
-    """flax `nn.Dense` twin (torch weight layout [out, in])."""
+    """flax `nn.Dense` twin (torch weight layout [out, in]), computed in
+    `dtype`."""
 
     def __init__(self, in_features: int, out_features: int,
-                 init: str = XAVIER):
+                 init: str = XAVIER, dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features)
         self.init = init
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        if dt == torch.float32:
+            return F.linear(x.to(dt), self.weight, self.bias)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
 class BatchNorm(nn.Module):
@@ -80,12 +113,15 @@ class BatchNorm(nn.Module):
     `ra = 0.9 * ra + 0.1 * batch_stat`, the variance being flax's fast
     biased one, max(mean(x^2) - mean(x)^2, 0). (`F.batch_norm` with
     buffers would store the unbiased variance.) `train=False` uses the
-    buffers."""
+    buffers. Statistics and the normalization are float32 whatever the
+    input; the output is rounded to `dtype`."""
 
     MOMENTUM = 0.9
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(num_features))
         self.bias = nn.Parameter(torch.empty(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -102,14 +138,17 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = True,
                 update_stats: bool = False) -> torch.Tensor:
+        x = x.to(torch.float32)
         if train:
             if update_stats:
                 self._update_stats(x)
-            return F.batch_norm(x, None, None, self.weight, self.bias,
-                                training=True, momentum=0.0, eps=self.eps)
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False,
-                            eps=self.eps)
+            y = F.batch_norm(x, None, None, self.weight, self.bias,
+                             training=True, momentum=0.0, eps=self.eps)
+        else:
+            y = F.batch_norm(x, self.running_mean, self.running_var,
+                             self.weight, self.bias, training=False,
+                             eps=self.eps)
+        return y.to(self.dtype)
 
 
 def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -155,7 +194,8 @@ class ConvBlockTower(nn.Module):
     """
 
     def __init__(self, repeat_num: int, hidden_num: int,
-                 activation: Callable = F.relu, collect_skips: bool = False):
+                 activation: Callable = F.relu, collect_skips: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.repeat_num = repeat_num
         self.activation = activation
@@ -163,12 +203,13 @@ class ConvBlockTower(nn.Module):
         i = 0
         for idx in range(repeat_num):
             ch = hidden_num * (idx + 1)
-            self.add_module(f"Conv_{i}", Conv(ch, ch, 3))
-            self.add_module(f"Conv_{i + 1}", Conv(ch, ch, 3))
+            self.add_module(f"Conv_{i}", Conv(ch, ch, 3, dtype=dtype))
+            self.add_module(f"Conv_{i + 1}", Conv(ch, ch, 3, dtype=dtype))
             i += 2
             if idx < repeat_num - 1:
                 self.add_module(f"Conv_{i}",
-                                Conv(ch, hidden_num * (idx + 2), 3, stride=2))
+                                Conv(ch, hidden_num * (idx + 2), 3, stride=2,
+                                     dtype=dtype))
                 i += 1
 
     def forward(self, x: torch.Tensor):

@@ -8,7 +8,10 @@ size > 1 the sample rows are
 samples whose box coordinate falls outside the image read 0, and the ROIs
 of all parts are stacked part-major into the batch axis (models.py:420).
 Plain PyTorch gathers: the JAX package's matmul form exists to avoid TPU
-gather stalls and computes the same values.
+gather stalls and computes the same values. As there, the interpolation
+runs in float32 whatever the feature map's dtype, and the crops come back
+in that dtype (`dpig_tpu/ops/crop.py:168,199`: a bfloat16 map is promoted
+by the float32 weights and the result cast back).
 """
 from __future__ import annotations
 
@@ -67,7 +70,8 @@ def crop_and_resize(feat: torch.Tensor, boxes: torch.Tensor, crop_h: int,
     """feat [B,H,W,C], boxes [B,4] normalized (y1,x1,y2,x2), box i crops
     image i -> [B, crop_h, crop_w, C]."""
     idx = torch.arange(feat.shape[0], device=feat.device)
-    return _crop(feat, idx, boxes, crop_h, crop_w)
+    return _crop(feat.to(torch.float32), idx, boxes, crop_h,
+                 crop_w).to(feat.dtype)
 
 
 def crop_body_rois(feat: torch.Tensor, part_bbox: torch.Tensor,
@@ -81,4 +85,5 @@ def crop_body_rois(feat: torch.Tensor, part_bbox: torch.Tensor,
     boxes = part_bbox.to(torch.float32) / norm                  # [B,P,4]
     boxes = boxes.transpose(0, 1).reshape(p * b, 4)
     idx = torch.arange(b, device=feat.device).repeat(p)
-    return _crop(feat, idx, boxes, roi_size, roi_size)
+    return _crop(feat.to(torch.float32), idx, boxes, roi_size,
+                 roi_size).to(feat.dtype)

@@ -9,7 +9,11 @@ with PyTorch's TF32 flags on. Training: one small-config train step on the
 card against the CPU (both D-step variants), the optimizers on identical
 gradients, and BatchNorm's running-statistic updates. Stage II: one
 model-3 and one model-4 step on the card against the CPU, the pose kernel
-on a model-4 preview, and the step noise in one copy.
+on a model-4 preview, and the step noise in one copy. The s8 conv
+(`csrc/s8_conv.cu`) bit-equal to its plain version over kernel sizes,
+strides, odd sizes, channel tails (Ci = 18, Co = 3), every residual and
+output kind; refused inputs; the int8 testers (models 12 and 11) and the
+bfloat16 tester on the card against the CPU.
 
 Marked `cuda` and skipped without a card. On a machine with one (JAX is not
 needed there, hence no conftest):
@@ -527,3 +531,106 @@ def test_step_noise_is_one_copy(card, tmp_path):
     assert len(copies) == 1 and "Pinned" in copies[0], copies
     want = torch.randn((24, 352), generator=torch.Generator().manual_seed(3))
     assert torch.equal(noise.cpu(), (want * 0.2).view(6, 4, 352))
+
+
+# ----------------------------------------------------------- s8 conv
+def _s8_case(seed, b, h, w, ci, co, k, dev):
+    g = torch.Generator().manual_seed(seed)
+    x8 = torch.randint(-127, 128, (b, h, w, ci), generator=g,
+                       dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (co, k, k, ci), generator=g,
+                       dtype=torch.int8)
+    factor = torch.rand(co, generator=g) * 1e-3 + 1e-4
+    bias = torch.randn(co, generator=g) * 0.1
+    return [t.to(dev) for t in (x8, w8, factor, bias)]
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,k,stride", [
+    (2, 7, 5, 16, 8, 1, 1), (2, 7, 5, 16, 8, 3, 1), (3, 9, 6, 32, 16, 3, 2),
+    (1, 8, 4, 16, 24, 3, 2), (2, 11, 7, 18, 16, 3, 1), (2, 5, 3, 48, 3, 3, 1),
+    (2, 6, 6, 18, 8, 1, 2), (2, 17, 9, 144, 130, 3, 1),
+    (1, 33, 20, 64, 72, 3, 2), (2, 16, 8, 256, 128, 1, 1)])
+@pytest.mark.parametrize("out", ["s8-res8", "bf16-resbf", "f32"])
+def test_s8_conv_is_bit_equal_to_its_plain_version(card, b, h, w, ci, co, k,
+                                                   stride, out):
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    x8, w8, factor, bias = _s8_case(h * 31 + ci, b, h, w, ci, co, k, card)
+    shape = sc.out_shape(x8, w8, stride)
+    g = torch.Generator().manual_seed(co)
+    kw = {}
+    if out == "s8-res8":
+        kw = dict(relu=True, res=torch.randint(-127, 128, shape, generator=g,
+                                               dtype=torch.int8).to(card),
+                  res_scale=(torch.rand(co, generator=g) * 0.05).to(card),
+                  out_scale=(torch.rand(co, generator=g) * 0.2 + 0.01
+                             ).to(card), out_dtype=torch.int8)
+    elif out == "bf16-resbf":
+        kw = dict(relu=True, res=torch.randn(shape, generator=g).to(
+            torch.bfloat16).to(card), out_dtype=torch.bfloat16)
+    else:
+        kw = dict(out_dtype=torch.float32)
+    before = sc.launches
+    got = sc.s8_conv(x8, w8, factor, bias, stride, **kw)
+    assert sc.launches == before + 1
+    want = sc.s8_conv_plain(x8, w8, factor, bias, stride, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert int((got != want).sum()) == 0
+
+
+def test_s8_conv_refuses_bad_inputs(card):
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    x8, w8, factor, bias = _s8_case(0, 1, 6, 4, 16, 8, 3, card)
+    with pytest.raises(ValueError, match="CUDA"):
+        sc.s8_conv_cuda(x8.cpu(), w8.cpu(), factor, bias)
+    with pytest.raises(TypeError):
+        sc.s8_conv_cuda(x8.float(), w8, factor, bias)
+    with pytest.raises(ValueError, match="5x5"):
+        sc.s8_conv_cuda(x8, torch.zeros(8, 5, 5, 16, dtype=torch.int8,
+                                        device=card), factor, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.s8_conv_cuda(x8.transpose(1, 2), w8, factor, bias)
+    with pytest.raises(ValueError, match="scale"):
+        sc.s8_conv_cuda(x8, w8, factor[:3], bias)
+
+
+@pytest.mark.parametrize("kw", [
+    {"inference_dtype": "int8"},
+    {"inference_dtype": "int8", "int8_calibration": "absmax",
+     "int8_fallback_layers": "dec/Conv_7,to_rgb"},
+    {"inference_dtype": "int8", "int8_fallback_mode": "legacy",
+     "int8_fallback_layers": "dec/Conv_7,to_rgb"},
+    {"compute_dtype": "bfloat16"}],
+    ids=["int8", "int8-island", "int8-legacy", "bf16"])
+def test_reduced_precision_transfer_on_the_card_matches_the_cpu(card, kw,
+                                                                tmp_path):
+    """Model 12 at a small config, the same weights and first batch,
+    each device calibrating its own int8 tables: the card's images within
+    the CPU's own int8-vs-float32 gap (int8) or bf16-vs-float32 gap
+    (bf16), in max and in mean |diff|. The tables themselves differ: the
+    generator's scales are statistics of embeddings that the two devices'
+    int8 encoders round differently (0.4% at most in one run on an
+    H100)."""
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    cfg = dict(platform="cpu", model_dir=str(tmp_path), img_H=32, img_W=16,
+               batch_size=4, conv_hidden_num=16, z_num=16, **kw)
+    cpu = ConditionalTransferTester(Config(**cfg))
+    dev = ConditionalTransferTester(Config(**{**cfg, "platform": ""}),
+                                    params=cpu.cpu_state())
+    batch = next(SyntheticLoader(4, 32, 16, seed=1))
+    out = {}
+    for name, t in (("cpu", cpu), ("card", dev)):
+        tb = batch_to_device(batch, t.device)
+        t._inference_params(tb)
+        before = sc.launches
+        out[name] = t.transfer_step(tb)[0].cpu()
+        if name == "card" and "inference_dtype" in kw:
+            assert sc.launches > before
+    diff = (out["card"] - out["cpu"]).abs()
+    f32 = ConditionalTransferTester(Config(**{
+        k: v for k, v in cfg.items() if k not in kw}),
+        params=cpu.cpu_state())
+    flt = f32.transfer_step(batch_to_device(batch, f32.device))[0]
+    gap = (out["cpu"] - flt).abs()
+    assert float(diff.max()) <= float(gap.max())
+    assert float(diff.mean()) <= float(gap.mean())

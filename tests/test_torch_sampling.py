@@ -478,7 +478,7 @@ def test_cli_interpolation_for_any_test_model(tmp_path):
 @pytest.mark.parametrize("flags,match", [
     (["--model=1002"], '"The 256 family"'),
     (["--model=1001"], '"The 256 family"'),
-    (["--model=11", "--inference_dtype=int8"], '"The int8 serving path"'),
+    (["--model=1002", "--inference_dtype=int8"], '"The 256 family"'),
     (["--model=13", "--pretrained_poseAE_path={orbax}"],
      "orbax checkpoint.*scripts/orbax_to_torch.py"),
     (["--model=11", "--test_one_by_one=true"],
