@@ -120,26 +120,35 @@ Phases, each printing one line; any failure exits non-zero:
               float32's; model 12 through the CLI (BF16_BATCHES batches)
               and its device ms per batch beside float32's; card vs CPU at
               batch 2 within the CPU's own bf16-vs-float32 gap.
- 14. s8 conv  the s8 conv kernel on every call one int8 model-12 batch at
-              full width makes (the generator and the FG/BG encoder,
-              recorded after calibration): 0 elements differing from its
-              plain version, kernel and plain device times, launches per
-              batch, the bound (2*M*N*K at the dense s8 tensor rate, or the
-              bytes at the memory rate) and its share, and cuDNN's bf16 conv
-              at the same shape (no PyTorch call computes the kernel's
-              function);
+ 14. s8 conv  the s8 conv on every call one int8 model-12 batch at full
+              width makes (the generator and the FG/BG encoder, recorded
+              after calibration), on the route `plan` gives it (wgmma,
+              csrc/s8_conv_sm90.cu, or mma_sync, csrc/s8_conv.cu) and, for
+              the wgmma shapes, on the mma_sync kernel too: 0 elements
+              differing from the plain version on each, the device times
+              of both kernels and of the plain version, launches per batch,
+              the bound (2*M*N*K at the dense s8 tensor rate, or the bytes
+              at the memory rate) and its share, cuDNN's bf16 conv at the
+              same shape (the float path int8 stands in for) and
+              `torch._int_mm` on the im2col matrix (the integer product
+              alone, without the gather or the epilogue; n/a where it
+              refuses the shape). No PyTorch call computes the whole
+              function;
  15. int8     `--inference_dtype=int8` at the defaults (channel, island):
               models 12 and 11 (sample_app, sampled poses) through the CLI,
-              each printing its self-check SSIM(int8,float), with the s8 and
-              pose launches each path must make; `--int8_fallback_layers=
-              dec/Conv_13,to_rgb` in island and legacy modes; device ms per
-              batch of model 12 at float32, bf16 and int8; card vs CPU at
-              batch 2 within the CPU's own int8-vs-float32 gap.
+              each printing its self-check SSIM(int8,float), with the s8
+              launches per route and the pose launches each path must
+              make; `--int8_fallback_layers=dec/Conv_13,to_rgb` in island
+              and legacy modes; device ms per batch of model 12 at float32,
+              bf16 and int8 (per stage, and the kernels' sum under
+              torch.profiler), and the int8 batch's device time outside
+              the s8 conv by the PyTorch op that launched it; card vs CPU
+              at batch 2 within the CPU's own int8-vs-float32 gap.
 
 The line before the last is {"kernels": [...]}: the pose kernel with its
-launches on each path, and the s8 conv with its launches on the int8
-paths and its times summed over one int8 batch; the last line is
-{"ok": true, "device": {...}}.
+launches on each path, and the s8 conv's two routes, each with its
+launches on the int8 paths and its times summed over its calls of one
+int8 batch; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -282,6 +291,7 @@ def phase_build():
     from dpig_tpu_torch.kernels import _build
     sources = {"pose_raster": ("pose_raster.cu", _build.load),
                "s8_conv": ("s8_conv.cu", _build.load),
+               "s8_conv_sm90": ("s8_conv_sm90.cu", _build.load),
                "tfrecord_scanner": ("tfrecord_scanner.cc", _build.load_host)}
 
     def build(lib):
@@ -299,7 +309,11 @@ def phase_build():
               f"{secs:.2f} s", flush=True)
     for name, note in (("pose_raster", "; shared memory: dynamic only, "
                         "K*8 B per block (144 B at K=18)"),
-                       ("s8_conv", "; two kernels: 16-byte loads / bytes")):
+                       ("s8_conv", "; two kernels: 16-byte loads / bytes"),
+                       ("s8_conv_sm90", "; five conv kernels (128x128 and "
+                        "128x256 tiles, split-K off / on; 256x128) and the "
+                        "split-K finish; 168 at launch, setmaxnreg 64 "
+                        "producer / 216 consumers")):
         ptxas = [ln.split(":", 1)[-1].strip() for ln in
                  _build.build_log(name).splitlines()
                  if "Used" in ln or "spill" in ln]
@@ -1499,7 +1513,7 @@ def _s8_bound_ms(c):
 
 def _record_s8_calls(fn):
     """Run fn() with every s8 conv launch recorded -> [its arguments by
-    name]."""
+    name, but the route: `plan` picks it]."""
     import inspect
     from dpig_tpu_torch.kernels import s8_conv as sc
     calls, launch = [], sc.s8_conv_cuda
@@ -1508,7 +1522,8 @@ def _record_s8_calls(fn):
     def recording(*args, **kw):
         bound = sig.bind(*args, **kw)
         bound.apply_defaults()
-        calls.append(dict(bound.arguments))
+        calls.append({k: v for k, v in bound.arguments.items()
+                      if k != "route"})
         return launch(*args, **kw)
 
     sc.s8_conv_cuda = recording
@@ -1527,13 +1542,75 @@ def _s8_key(c):
             None if res is None else str(res.dtype).replace("torch.", ""))
 
 
+def _im2col(x8, k, stride):
+    """x8 [B,H,W,Ci] s8 -> its [M, k*k*Ci] im2col matrix, SAME-padded."""
+    import torch.nn.functional as F
+    from dpig_tpu_torch.models.layers import same_pads
+    b, h, w, ci = x8.shape
+    ph, pw = same_pads(h, k, stride), same_pads(w, k, stride)
+    xp = F.pad(x8.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
+    cols = xp.permute(0, 2, 3, 1).unfold(1, k, stride).unfold(2, k, stride)
+    return cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * ci)
+
+
+def _int_mm_ms(c):
+    """Device ms of `torch._int_mm` on the call's im2col matrix [M, K]
+    (built before the timed window) times its weights [K, N]: the integer
+    product alone, a yardstick the port never calls. None where _int_mm
+    refuses the shape."""
+    w8 = c["w8"]
+    a = _im2col(c["x8"], w8.shape[1], c["stride"])
+    b = w8.reshape(w8.shape[0], -1).t()
+    try:
+        torch._int_mm(a, b)
+        torch.cuda.synchronize()
+    except RuntimeError:
+        return None
+    return _graph_ms(lambda: torch._int_mm(a, b))
+
+
+def _s8_route_entry(route, rows):
+    """The kernels-line entry of one s8 route: its times, bound and
+    yardsticks summed over its calls of one int8 batch."""
+    mine = [r for r in rows if r["route"] == route]
+
+    def per_batch(key):
+        vals = [r[key] for r in mine]
+        if not mine or any(v is None for v in vals):
+            return None
+        return sum(v * r["launches_per_batch"] for v, r in zip(vals, mine))
+
+    bound_by = max(("operations", "bytes"), key=lambda b: sum(
+        r["bound_ms"] * r["launches_per_batch"] for r in mine
+        if r["bound_by"] == b))
+    source = {"wgmma": "s8_conv_sm90.cu", "mma_sync": "s8_conv.cu"}[route]
+    return {"name": f"s8_conv ({route})", "route": "cuda",
+            "source": f"dpig_tpu_torch/csrc/{source}",
+            "replaces": "dpig_tpu/models/quant.py:71",
+            "launches": None,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": per_batch("ms"), "plain_ms": per_batch("plain_ms"),
+            "bound_ms": per_batch("bound_ms"), "bound_by": bound_by,
+            "library_ms": per_batch("int_mm_ms"),
+            "library_call": "torch._int_mm on the im2col matrix (the "
+                            "integer product alone); null where it refuses "
+                            "a shape",
+            "mma_sync_ms": per_batch("mma_sync_ms"),
+            "cudnn_bf16_ms": per_batch("cudnn_bf16_ms"),
+            "per": f"its {sum(r['launches_per_batch'] for r in mine)} calls "
+                   "of one int8 model-12 batch of 16",
+            "shapes": mine}
+
+
 def phase_s8_conv():
     """The s8 conv on every conv shape one int8 model-12 batch at full
     Market width gives it (the generator and the FG/BG encoder, recorded
-    from a real batch after calibration): bit-equal to its plain version,
-    kernel and plain device times, launches per batch, the card's bound
-    and its share, and cuDNN's bfloat16 conv at the same shape (the float
-    path it stands in for)."""
+    from a real batch after calibration), on the route `plan` picks and,
+    for the wgmma shapes, on the mma_sync kernel too: each bit-equal to the
+    plain version, the device times of both kernels and of the plain
+    version, launches per batch, the card's bound and its share, cuDNN's
+    bfloat16 conv at the same shape (the float path it stands in for) and
+    `torch._int_mm` on the im2col matrix."""
     from dpig_tpu_torch.apps.common import batch_to_device
     from dpig_tpu_torch.apps.testers import ConditionalTransferTester
     from dpig_tpu_torch.config import Config
@@ -1553,72 +1630,83 @@ def phase_s8_conv():
     rows, worst = [], 0
     for key, group in shapes.items():
         c = group[0]
-        got = sc.s8_conv_cuda(**c)
-        want = sc.s8_conv_plain(**c)
-        torch.cuda.synchronize()
-        differ = int((got != want).sum())
-        err = float((got.float() - want.float()).abs().max())
-        worst = max(worst, differ)
-        ms = _graph_ms(lambda: sc.s8_conv_cuda(**c))
-        plain_ms = _graph_ms(lambda: sc.s8_conv_plain(**c), reps=3, inner=2)
         stride = c["stride"]
+        how = sc.plan(tuple(c["x8"].shape), tuple(c["w8"].shape), stride)
+        want = sc.s8_conv_plain(**c)
+        differ, err = {}, 0.0
+        for route in {how.route, "mma_sync"}:
+            got = sc.s8_conv_cuda(**c, route=route)
+            torch.cuda.synchronize()
+            differ[route] = int((got != want).sum())
+            err = max(err, float((got.float() - want.float()).abs().max()))
+        worst = max(worst, *differ.values())
+        ms = _graph_ms(lambda: sc.s8_conv_cuda(**c))
+        mma_ms = (ms if how.route == "mma_sync" else
+                  _graph_ms(lambda: sc.s8_conv_cuda(**c, route="mma_sync")))
+        plain_ms = _graph_ms(lambda: sc.s8_conv_plain(**c), reps=3, inner=2)
         xb = c["x8"].to(torch.bfloat16).permute(0, 3, 1, 2)
         wb = c["w8"].to(torch.bfloat16).permute(0, 3, 1, 2).contiguous()
         cudnn_ms = _graph_ms(lambda: conv2d_same(xb, wb, None, stride))
+        del xb, wb
+        int_mm_ms = _int_mm_ms(c)
         bound_ms, bound_by, ops = _s8_bound_ms(c)
         row = dict(x=key[0], w=key[1], stride=stride, out=key[3],
-                   res=key[4], launches_per_batch=len(group),
+                   res=key[4], route=how.route, tile=[how.bm, how.bn],
+                   split=how.split, launches_per_batch=len(group),
                    differing=differ, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   share_of_bound=bound_ms / ms, cudnn_bf16_ms=cudnn_ms,
+                   mma_sync_ms=mma_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, share_of_bound=bound_ms / ms,
+                   cudnn_bf16_ms=cudnn_ms, int_mm_ms=int_mm_ms,
                    tops=ops / ms / 1e9)
         rows.append(row)
+        imm = ("n/a" if int_mm_ms is None else f"{int_mm_ms * 1e3:.1f} us")
         print(f"[s8 conv] x{key[0]} w{key[1]} stride {stride} out {key[3]}"
-              f" res {key[4]}: {len(group)} per batch, differing {differ}, "
-              f"kernel {ms * 1e3:.1f} us ({ops / ms / 1e9:.1f} TOP/s), "
-              f"plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
-              f"({bound_by}), {bound_ms / ms:.1%} of it; cuDNN bf16 conv "
-              f"{cudnn_ms * 1e3:.1f} us", flush=True)
-    per_batch = {k: sum(r[k] * r["launches_per_batch"] for r in rows)
-                 for k in ("ms", "plain_ms", "bound_ms", "cudnn_bf16_ms")}
+              f" res {key[4]}: {len(group)} per batch, {how.route} "
+              f"{how.bm}x{how.bn} split {how.split}, differing {differ}; "
+              f"{how.route} {ms * 1e3:.1f} us ({ops / ms / 1e9:.1f} TOP/s, "
+              f"{bound_ms / ms:.1%} of the {bound_ms * 1e3:.1f} us "
+              f"{bound_by} bound), mma_sync {mma_ms * 1e3:.1f} us, plain "
+              f"{plain_ms * 1e3:.1f} us, cuDNN bf16 conv "
+              f"{cudnn_ms * 1e3:.1f} us, torch._int_mm {imm}", flush=True)
+    entries = {r: _s8_route_entry(r, rows) for r in sc.ROUTES}
+    for route, e in entries.items():
+        imm = ("n/a" if e["library_ms"] is None
+               else f"{e['library_ms']:.3f} ms")
+        print(f"[s8 conv] one int8 model-12 batch of 16, {e['per']} "
+              f"({route}): {e['ms']:.3f} ms (mma_sync kernel on the same "
+              f"calls {e['mma_sync_ms']:.3f} ms), plain {e['plain_ms']:.3f} "
+              f"ms, bound {e['bound_ms']:.3f} ms "
+              f"({e['bound_ms'] / e['ms']:.1%}), cuDNN bf16 convs "
+              f"{e['cudnn_bf16_ms']:.3f} ms, torch._int_mm {imm}",
+              flush=True)
+    total = {k: sum(e[k] for e in entries.values())
+             for k in ("ms", "mma_sync_ms", "bound_ms", "cudnn_bf16_ms")}
     print(f"[s8 conv] one int8 model-12 batch of 16: {len(calls)} launches "
-          f"on {len(rows)} shapes; per batch kernel {per_batch['ms']:.3f} "
-          f"ms, plain {per_batch['plain_ms']:.3f} ms, bound "
-          f"{per_batch['bound_ms']:.3f} ms "
-          f"({per_batch['bound_ms'] / per_batch['ms']:.1%}), cuDNN bf16 "
-          f"convs at the same shapes {per_batch['cudnn_bf16_ms']:.3f} ms",
-          flush=True)
+          f"on {len(rows)} shapes, {total['ms']:.3f} ms as routed (all on "
+          f"the mma_sync kernel {total['mma_sync_ms']:.3f} ms), bound "
+          f"{total['bound_ms']:.3f} ms ({total['bound_ms'] / total['ms']:.1%}"
+          f"), cuDNN bf16 convs at the same shapes "
+          f"{total['cudnn_bf16_ms']:.3f} ms", flush=True)
     if worst:
         raise AssertionError("the s8 conv differs from its plain version")
     if len(calls) != S8_ENCODER_CONVS + S8_GENERATOR_CONVS:
         raise AssertionError(f"{len(calls)} s8 launches in one batch")
-    bound_by = max(("operations", "bytes"), key=lambda b: sum(
-        r["bound_ms"] * r["launches_per_batch"] for r in rows
-        if r["bound_by"] == b))
-    return {"name": "s8_conv", "route": "cuda",
-            "source": "dpig_tpu_torch/csrc/s8_conv.cu",
-            "replaces": "dpig_tpu/models/quant.py:71",
-            "launches": None,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": per_batch["ms"], "plain_ms": per_batch["plain_ms"],
-            "bound_ms": per_batch["bound_ms"], "bound_by": bound_by,
-            "library_ms": None, "cudnn_bf16_ms": per_batch["cudnn_bf16_ms"],
-            "per": "one int8 model-12 batch of 16 (every launch of it)",
-            "shapes": rows}
+    return entries
 
 
 def _run_cli_s8(argv):
-    """`_run_cli` with the s8 conv's launch count also set to 0 just before
-    and read just after; stdout kept -> (pose launches, s8 launches, wall
-    s, stdout)."""
+    """`_run_cli` with the s8 conv's launch counts (total and per route)
+    also set to 0 just before and read just after; stdout kept -> (pose
+    launches, s8 launches, s8 launches by route, wall s, stdout)."""
     from dpig_tpu_torch.kernels import s8_conv as sc
     sc.launches = 0
+    sc.launches_by_route.update(dict.fromkeys(sc.ROUTES, 0))
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         pose, wall = _run_cli(argv)
     text = out.getvalue()
     sys.stdout.write(text)
-    return pose, sc.launches, wall, text
+    return pose, sc.launches, dict(sc.launches_by_route), wall, text
 
 
 def _selfcheck(text):
@@ -1626,6 +1714,50 @@ def _selfcheck(text):
     if not lines:
         raise AssertionError("no int8 self-check line")
     return float(lines[-1].split("SSIM(int8,float)=")[1].split()[0])
+
+
+def _profile_transfer(tester, batch):
+    """torch.profiler over one `transfer_step` (after a warm-up one) ->
+    (device kernel events, key_averages rows with self device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    from dpig_tpu_torch.apps.common import batch_to_device
+    jb = batch_to_device(batch, tester.device)
+    tester.transfer_step(jb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tester.transfer_step(jb)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    if not kernels:
+        raise AssertionError("the profiler saw no device time")
+    ops = [e for e in prof.key_averages()
+           if e.device_type != cuda and _self_device_us(e) > 0]
+    return kernels, sorted(ops, key=_self_device_us, reverse=True)
+
+
+def _self_device_us(evt) -> float:
+    """A key_averages() row's self device time (`self_cuda_time_total`
+    before PyTorch 2.4)."""
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def _int8_remainder(kernels, ops):
+    """Prints the int8 batch's device time in the s8 conv and, outside it,
+    by the PyTorch op that launched it (self device time), top 10."""
+    us = sum(e.time_range.elapsed_us() for e in kernels)
+    s8 = [e for e in kernels if "s8_conv" in e.name]
+    s8_us = sum(e.time_range.elapsed_us() for e in s8)
+    print(f"[int8] model 12 int8 batch of 16 under torch.profiler: device "
+          f"kernels {us / 1e3:.3f} ms in {len(kernels)} launches; the s8 "
+          f"conv {s8_us / 1e3:.3f} ms in {len(s8)}; outside it "
+          f"{(us - s8_us) / 1e3:.3f} ms", flush=True)
+    for e in ops[:10]:
+        print(f"[int8]   outside the s8 conv: {e.key} "
+              f"{_self_device_us(e) / 1e3:.3f} ms device, {e.count} calls",
+              flush=True)
 
 
 def phase_int8(tmp):
@@ -1639,40 +1771,47 @@ def phase_int8(tmp):
 
     base = ["--is_train=false", "--synthetic_data=true",
             "--inference_dtype=int8"]
-    # path: (flags, batches, s8 launches of the generator, encoder run per
-    # batch, pose launches per batch). Calibration adds one int8 encoder
-    # pass (its embeddings) and the self-check one int8 generator pass;
-    # the fallback runs the two named layers in bf16, and the legacy graph
-    # has no s8 stem.
+    # path: (flags, batches, s8 launches of the generator, of them on the
+    # mma_sync route, encoder run per batch, pose launches per batch).
+    # Calibration adds one int8 encoder pass (its embeddings) and the
+    # self-check one int8 generator pass; the fallback runs the two named
+    # layers in bf16, and the legacy graph has no s8 stem. The mma_sync
+    # route takes the 18-channel stem and the 3-channel to_rgb, the wgmma
+    # route every other conv (all the encoder's).
     runs = {
         "model 12 transfer int8": (
-            ["--model=12"], INT8_BATCHES, S8_GENERATOR_CONVS, True, 2),
+            ["--model=12"], INT8_BATCHES, S8_GENERATOR_CONVS, 2, True, 2),
         "model 11 sampling int8": (
             ["--model=11", "--sample_app=true", "--pose_source=sampled"],
-            INT8_BATCHES, S8_GENERATOR_CONVS, False, 3),
+            INT8_BATCHES, S8_GENERATOR_CONVS, 2, False, 3),
         "model 12 int8 island fallback": (
             ["--model=12", f"--int8_fallback_layers={INT8_FALLBACK}"], 1,
-            S8_GENERATOR_CONVS - 2, True, 2),
+            S8_GENERATOR_CONVS - 2, 1, True, 2),
         "model 12 int8 legacy fallback": (
             ["--model=12", f"--int8_fallback_layers={INT8_FALLBACK}",
-             "--int8_fallback_mode=legacy"], 1, S8_GENERATOR_CONVS - 3,
+             "--int8_fallback_mode=legacy"], 1, S8_GENERATOR_CONVS - 3, 0,
             True, 2)}
     s8_launches, pose_launches = {}, {}
-    for i, (path, (flags, n, gen, enc, pose_per)) in enumerate(runs.items()):
+    for i, (path, (flags, n, gen, gen_mma, enc, pose_per)) in enumerate(
+            runs.items()):
         want_s8 = S8_ENCODER_CONVS + gen + n * (gen + (
             S8_ENCODER_CONVS if enc else 0))
-        pose, s8, wall, text = _run_cli_s8(
+        want_routes = {"mma_sync": (n + 1) * gen_mma}
+        want_routes["wgmma"] = want_s8 - want_routes["mma_sync"]
+        pose, s8, by_route, wall, text = _run_cli_s8(
             base + flags + [f"--test_batch_num={n}",
                             f"--model_dir={os.path.join(tmp, f'q{i}')}"])
         ssim = _selfcheck(text)
         print(f"[int8] {path}: {n} batches of 16, s8 conv launches {s8} "
-              f"(expected {want_s8}), pose kernel launches {pose}, wall "
+              f"(expected {want_s8}), by route {by_route} (expected "
+              f"{want_routes}), pose kernel launches {pose}, wall "
               f"{wall:.1f} s, self-check SSIM(int8,float) {ssim:.4f}",
               flush=True)
-        if s8 != want_s8 or pose != n * pose_per + 1:  # +1: calibration
-            raise AssertionError(f"{path}: {s8} s8 launches, {pose} pose "
-                                 "launches")
-        s8_launches[path], pose_launches[path] = s8, pose
+        if s8 != want_s8 or by_route != want_routes or \
+                pose != n * pose_per + 1:  # +1: calibration
+            raise AssertionError(f"{path}: {s8} s8 launches {by_route}, "
+                                 f"{pose} pose launches")
+        s8_launches[path], pose_launches[path] = by_route, pose
 
     batch = next(SyntheticLoader(16, 128, 64, seed=5))
     f32 = ConditionalTransferTester(Config(model_dir=tmp))
@@ -1687,9 +1826,13 @@ def phase_int8(tmp):
     testers["int8"]._inference_params(batch_to_device(batch, f32.device))
     for name, t in testers.items():
         ms, total = _stage_ms_sum(t, batch)
+        kernels, ops = _profile_transfer(t, batch)
+        kernel_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
         print(f"[int8] model 12 device ms per batch of 16, {name}: "
-              f"{ {k: round(v, 3) for k, v in ms.items()} } sum {total:.3f}",
-              flush=True)
+              f"{ {k: round(v, 3) for k, v in ms.items()} } sum {total:.3f};"
+              f" device kernels (torch.profiler) {kernel_ms:.3f}", flush=True)
+        if name == "int8":
+            _int8_remainder(kernels, ops)
 
     small = next(SyntheticLoader(2, 128, 64, seed=99))
     card = ConditionalTransferTester(Config(model_dir=tmp,
@@ -1755,11 +1898,16 @@ def main() -> int:
                **int8_pose}
     kernel["launches"] = sum(by_path.values())
     kernel["launches_by_path"] = by_path
-    s8["launches"] = sum(s8_by_path.values())
-    s8["launches_by_path"] = s8_by_path
+    for route, entry in s8.items():
+        entry["launches_by_path"] = {p: n[route]
+                                     for p, n in s8_by_path.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        if not entry["launches"]:
+            raise AssertionError(f"the s8 conv's {route} route was not "
+                                 "launched on the int8 paths")
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    print(json.dumps({"kernels": [kernel, s8]}))
+    print(json.dumps({"kernels": [kernel, *s8.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""The s8 conv of the int8 serving path (`csrc/s8_conv.cu`) and its plain
-version.
+"""The s8 conv of the int8 serving path (`csrc/s8_conv_sm90.cu` and
+`csrc/s8_conv.cu`) and its plain version.
 
 What it replaces: XLA code, not a Pallas kernel. The JAX package's int8
 graph (`dpig_tpu/models/quant.py`) runs every quantized conv as
@@ -30,40 +30,112 @@ choice; a scalar scale stands for every channel).
 `s8_conv_plain` is the plain version: an exact float64 conv of the s8
 values (at the Market shape the sums stay below 2^28, far from float64's
 2^53) and the epilogue in float32 PyTorch ops, one op per rounding. On the
-CPU `s8_conv` calls it; on the card it launches the kernel, which must
+CPU `s8_conv` calls it; on the card it launches a kernel, which must
 equal it bit for bit. `epilogue` is the float part alone; the int8 graph's
-bfloat16 fallback islands share it. `launches` counts the kernel's
-launches in this process.
+bfloat16 fallback islands share it.
+
+Two kernels, two routes, chosen by `plan` from the shapes alone:
+
+- "wgmma" (`csrc/s8_conv_sm90.cu`): Ci % 64 == 0 and Co >= 8, every conv
+  of the Market generator and encoder but two. wgmma on 128 x 128 or
+  128 x 256 tiles fed by a TMA / cp.async ring; split-K (`split` > 1)
+  where the tile grid leaves SMs idle, its int32 partials stored in a
+  workspace the wrapper allocates and summed by a second launch.
+- "mma_sync" (`csrc/s8_conv.cu`): everything else, the 18-channel pose
+  stem and the 3-channel `to_rgb` at Market.
+
+`launches` counts both kernels' launches in this process,
+`launches_by_route` each one's.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..models.layers import same_pads
 
+ROUTES = ("wgmma", "mma_sync")
 launches = 0
+launches_by_route = dict.fromkeys(ROUTES, 0)
 
 _OUT_KINDS = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 _RES_KINDS = {None: 0, torch.int8: 1, torch.bfloat16: 2}
 
-_fn = None
+# The wgmma route's tiling (csrc/s8_conv_sm90.cu): 128 output pixels per
+# tile (or 256, see `plan`), stages of 128 K-bytes, and the SM count of an
+# H100 SXM, which the split-K factor fills. Constants, so the route and the split depend on
+# the shapes alone, not on the card.
+WGMMA_BM, WGMMA_BK, SM_COUNT = 128, 128, 132
+MIN_SPLIT_STAGES = 3  # each split-K range keeps at least 3 stages
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+@dataclass(frozen=True)
+class Plan:
+    """How one call runs: `route` ("wgmma" or "mma_sync"), the block tile
+    `bm` x `bn`, `stages` K stages of `bk` bytes and the split-K factor
+    `split` (wgmma only; 1 = no split)."""
+    route: str
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    split: int
+
+
+def plan(x_shape, w_shape, stride: int) -> Plan:
+    """The route and tiling of an s8 conv of NHWC input `x_shape` with
+    [Co, k, k, Ci] weights `w_shape`: wgmma where Ci % 64 == 0 and Co >= 8,
+    with the N tile (128 or 256) that pads Co least (256 on a tie); a
+    128-wide N tile gets 256-row M tiles where those still fill the SMs,
+    else 128 rows and, where the tile grid is below the SM count, split-K
+    over as many K ranges as fill the SMs, each at least MIN_SPLIT_STAGES
+    stages long."""
+    b, h, w, ci = x_shape
+    co, kh, kw, _ = w_shape
+    k = kh * kw * ci
+    if ci % 64 or co < 8:
+        return Plan("mma_sync", 64, 64, 64, -(-k // 64), 1)
+    m = b * -(-h // stride) * -(-w // stride)
+    bn = 256 if -(-co // 256) * 256 <= -(-co // 128) * 128 else 128
+    stages = -(-k // WGMMA_BK)
+    if bn == 128 and -(-m // 256) * -(-co // bn) >= SM_COUNT:
+        return Plan("wgmma", 256, bn, WGMMA_BK, stages, 1)
+    tiles = -(-m // WGMMA_BM) * -(-co // bn)
+    split = 1
+    if tiles < SM_COUNT:
+        split = max(1, min(SM_COUNT // tiles, stages // MIN_SPLIT_STAGES))
+    return Plan("wgmma", WGMMA_BM, bn, WGMMA_BK, stages, split)
+
+
+def split_ranges(stages: int, split: int) -> List[Tuple[int, int]]:
+    """The K-stage range [begin, end) of each split-K block, as the kernel
+    computes it from blockIdx.z: z*T//S .. (z+1)*T//S."""
+    return [(z * stages // split, (z + 1) * stages // split)
+            for z in range(split)]
+
+
+_fns = {}
+_LIBS = {"mma_sync": ("s8_conv", "dpig_s8_conv"),
+         "wgmma": ("s8_conv_sm90", "dpig_s8_conv_sm90")}
+
+
+def _kernel(route: str):
+    fn = _fns.get(route)
+    if fn is None:
         from . import _build
-        fn = _build.load("s8_conv").dpig_s8_conv
+        lib, sym = _LIBS[route]
+        fn = getattr(_build.load(lib), sym)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, p, p, i, p, i, i, i, i, i, i, i, i,
-                       i, i, i, i, p]
+        # bm, bn, split, workspace
+        extra = [i, i, i, p] if route == "wgmma" else []
+        fn.argtypes = [p, p, p, p, p, i, p, p, i, p] + [i] * 12 + extra + [p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[route] = fn
+    return fn
 
 
 def _per_channel(scale, co: int, device) -> torch.Tensor:
@@ -104,19 +176,25 @@ def epilogue(y: torch.Tensor, relu: bool = False,
     return y.to(out_dtype)
 
 
-def s8_conv_plain(x8: torch.Tensor, w8: torch.Tensor, factor, bias,
-                  stride: int = 1, relu: bool = False,
-                  res: Optional[torch.Tensor] = None, res_scale=None,
-                  out_scale=None, out_dtype: torch.dtype = torch.bfloat16
-                  ) -> torch.Tensor:
-    """The plain version of `s8_conv` (same arguments)."""
+def conv_acc_plain(x8: torch.Tensor, w8: torch.Tensor, stride: int = 1
+                   ) -> torch.Tensor:
+    """The int32 sums [B,Ho,Wo,Co] of the s8 conv: an exact float64 conv."""
     kh, kw = w8.shape[1], w8.shape[2]
     x = x8.permute(0, 3, 1, 2).to(torch.float64)
     ph = same_pads(x.shape[2], kh, stride)
     pw = same_pads(x.shape[3], kw, stride)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
     acc = F.conv2d(x, w8.permute(0, 3, 1, 2).to(torch.float64), None, stride)
-    acc = acc.permute(0, 2, 3, 1).to(torch.int32)
+    return acc.permute(0, 2, 3, 1).to(torch.int32)
+
+
+def s8_conv_plain(x8: torch.Tensor, w8: torch.Tensor, factor, bias,
+                  stride: int = 1, relu: bool = False,
+                  res: Optional[torch.Tensor] = None, res_scale=None,
+                  out_scale=None, out_dtype: torch.dtype = torch.bfloat16
+                  ) -> torch.Tensor:
+    """The plain version of `s8_conv` (same arguments)."""
+    acc = conv_acc_plain(x8, w8, stride)
     f = torch.as_tensor(factor, dtype=torch.float32, device=x8.device)
     b = torch.as_tensor(bias, dtype=torch.float32, device=x8.device)
     y = acc.to(torch.float32) * f + b
@@ -126,9 +204,12 @@ def s8_conv_plain(x8: torch.Tensor, w8: torch.Tensor, factor, bias,
 def s8_conv_cuda(x8: torch.Tensor, w8: torch.Tensor, factor, bias,
                  stride: int = 1, relu: bool = False,
                  res: Optional[torch.Tensor] = None, res_scale=None,
-                 out_scale=None, out_dtype: torch.dtype = torch.bfloat16
-                 ) -> torch.Tensor:
-    """The kernel (same arguments as `s8_conv`); CUDA tensors only."""
+                 out_scale=None, out_dtype: torch.dtype = torch.bfloat16,
+                 route: Optional[str] = None) -> torch.Tensor:
+    """The kernel `plan` picks for these shapes (same arguments as
+    `s8_conv`); CUDA tensors only. `route="mma_sync"` runs the older kernel
+    on any shape, as a yardstick; `route="wgmma"` raises on a shape the
+    plan does not send there."""
     global launches
     if not (x8.is_cuda and w8.is_cuda):
         raise ValueError("s8_conv_cuda takes CUDA tensors; CPU tensors go "
@@ -169,19 +250,47 @@ def s8_conv_cuda(x8: torch.Tensor, w8: torch.Tensor, factor, bias,
     out = torch.empty((b, ho, wo, co), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
+    how = plan(tuple(x8.shape), tuple(w8.shape), stride)
+    if route is None:
+        route = how.route
+    elif route not in ROUTES:
+        raise ValueError(f"route {route!r}: one of {ROUTES}")
+    elif route == "wgmma" and how.route != "wgmma":
+        raise ValueError(f"x8 {tuple(x8.shape)}, w8 {tuple(w8.shape)}: the "
+                         "wgmma route takes Ci % 64 == 0 and Co >= 8")
+    extra = []
+    if route == "wgmma":
+        if x8.data_ptr() % 16 or w8.data_ptr() % 16:
+            raise ValueError("the wgmma route needs x8 and w8 16-byte "
+                             "aligned (cp.async and TMA)")
+        ws = None
+        if how.split > 1:  # each split's int32 partial sums [M, Co]
+            ws = torch.empty(how.split * b * ho * wo * co, dtype=torch.int32,
+                             device=dev)
+        extra = [how.bm, how.bn, how.split,
+                 0 if ws is None else ws.data_ptr()]
     pt = same_pads(x8.shape[1], kh, stride)[0]
     pl = same_pads(x8.shape[2], kw, stride)[0]
     ptr = (lambda t: 0 if t is None else t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel()(x8.data_ptr(), w8.data_ptr(), f.data_ptr(),
-                        bb.data_ptr(), ptr(res), res_kind, ptr(rs),
-                        out.data_ptr(), _OUT_KINDS[out_dtype], ptr(os_),
-                        int(relu), b, x8.shape[1], x8.shape[2], x8.shape[3],
-                        ho, wo, co, kh, stride, pt, pl, stream)
+        err = _kernel(route)(
+            x8.data_ptr(), w8.data_ptr(), f.data_ptr(), bb.data_ptr(),
+            ptr(res), res_kind, ptr(rs), out.data_ptr(),
+            _OUT_KINDS[out_dtype], ptr(os_), int(relu), b, x8.shape[1],
+            x8.shape[2], x8.shape[3], ho, wo, co, kh, stride, pt, pl, *extra,
+            stream)
+    if err == -1:
+        raise RuntimeError("s8_conv (wgmma): the driver has no "
+                           "cuTensorMapEncodeTiled")
+    if err <= -1000:
+        raise RuntimeError(f"s8_conv (wgmma): cuTensorMapEncodeTiled "
+                           f"failed: CUresult {-1000 - err}")
     if err != 0:
-        raise RuntimeError(f"s8_conv launch failed: cudaError {err}")
+        raise RuntimeError(f"s8_conv launch failed ({route}): cudaError "
+                           f"{err}")
     launches += 1
+    launches_by_route[route] += 1
     return out
 
 

@@ -10,10 +10,14 @@ card against the CPU (both D-step variants), the optimizers on identical
 gradients, and BatchNorm's running-statistic updates. Stage II: one
 model-3 and one model-4 step on the card against the CPU, the pose kernel
 on a model-4 preview, and the step noise in one copy. The s8 conv
-(`csrc/s8_conv.cu`) bit-equal to its plain version over kernel sizes,
-strides, odd sizes, channel tails (Ci = 18, Co = 3), every residual and
-output kind; refused inputs; the int8 testers (models 12 and 11) and the
-bfloat16 tester on the card against the CPU.
+bit-equal to its plain version over kernel sizes, strides, odd sizes,
+channel tails (Ci = 18, Co = 3), every residual and output kind, on the
+route `plan` picks; the wgmma route (`csrc/s8_conv_sm90.cu`) also against
+the mma_sync kernel (`csrc/s8_conv.cu`) over Ci 64-768, ragged M and N,
+stride 2 on odd sizes, ROI crops, split-K on and off, on a side stream and
+in a replayed CUDA graph, with its launches counted per route; refused
+inputs; the int8 testers (models 12 and 11) and the bfloat16 tester on the
+card against the CPU.
 
 Marked `cuda` and skipped without a card. On a machine with one (JAX is not
 needed there, hence no conftest):
@@ -592,6 +596,151 @@ def test_s8_conv_refuses_bad_inputs(card):
         sc.s8_conv_cuda(x8.transpose(1, 2), w8, factor, bias)
     with pytest.raises(ValueError, match="scale"):
         sc.s8_conv_cuda(x8, w8, factor[:3], bias)
+
+
+def _s8_out_kwargs(out, shape, co, dev):
+    """Epilogue arguments of one output kind: s8 with an s8 residual and
+    ReLU, s8 alone without ReLU, bf16 with a bf16 or an s8 residual, f32."""
+    g = torch.Generator().manual_seed(co + len(out))
+
+    def res8():
+        return dict(res=torch.randint(-127, 128, shape, generator=g,
+                                      dtype=torch.int8).to(dev),
+                    res_scale=(torch.rand(co, generator=g) * 0.05).to(dev))
+
+    def out8():
+        return dict(out_scale=(torch.rand(co, generator=g) * 0.2 + 0.01
+                               ).to(dev), out_dtype=torch.int8)
+
+    if out == "s8-res8-relu":
+        return dict(relu=True, **res8(), **out8())
+    if out == "s8":
+        return out8()
+    if out == "bf16-resbf-relu":
+        return dict(relu=True, res=torch.randn(shape, generator=g).to(
+            torch.bfloat16).to(dev), out_dtype=torch.bfloat16)
+    if out == "bf16-res8":
+        return dict(**res8(), out_dtype=torch.bfloat16)
+    return dict(out_dtype=torch.float32)
+
+
+S8_WGMMA_CASES = [  # b, h, w, ci, co, k, stride
+    (2, 9, 7, 64, 72, 3, 2),        # Ci 64: two taps a stage; odd, stride 2
+    (2, 7, 5, 64, 100, 3, 1),       # Co % 8 != 0: the scalar epilogue
+    (2, 33, 20, 192, 136, 3, 2),    # a stage straddling two taps
+    (2, 17, 9, 256, 200, 3, 1),     # N tile 256, ragged M and N
+    (3, 48, 48, 128, 128, 3, 1),    # ROI crops
+    (1, 12, 12, 128, 96, 1, 1),     # 1x1
+    (16, 8, 4, 640, 640, 3, 1),     # the Market tail: split-K 6
+    (16, 8, 4, 768, 768, 3, 1),     # split-K 11, N tile 256
+    (16, 64, 64, 128, 128, 3, 1),   # 256 x 128 tiles
+    (5, 91, 93, 64, 120, 3, 1)]     # 256 x 128, ragged M and N
+S8_OUTS = ["s8-res8-relu", "s8", "bf16-resbf-relu", "bf16-res8", "f32"]
+
+
+@pytest.mark.parametrize("out", S8_OUTS)
+@pytest.mark.parametrize("b,h,w,ci,co,k,stride", S8_WGMMA_CASES)
+def test_s8_wgmma_route_is_bit_equal(card, b, h, w, ci, co, k, stride, out):
+    """The wgmma route (csrc/s8_conv_sm90.cu) against the plain version
+    and the mma_sync kernel: 0 differing elements; one launch, counted on
+    its route."""
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    x8, w8, factor, bias = _s8_case(h * 31 + ci, b, h, w, ci, co, k, card)
+    kw = _s8_out_kwargs(out, sc.out_shape(x8, w8, stride), co, card)
+    how = sc.plan(tuple(x8.shape), tuple(w8.shape), stride)
+    assert how.route == "wgmma"
+    before, routed = sc.launches, dict(sc.launches_by_route)
+    got = sc.s8_conv(x8, w8, factor, bias, stride, **kw)
+    assert sc.launches == before + 1
+    assert sc.launches_by_route == {**routed,
+                                    "wgmma": routed["wgmma"] + 1}
+    want = sc.s8_conv_plain(x8, w8, factor, bias, stride, **kw)
+    older = sc.s8_conv_cuda(x8, w8, factor, bias, stride, route="mma_sync",
+                            **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert int((got != want).sum()) == 0
+    assert int((got != older).sum()) == 0
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_s8_wgmma_split_k_on_and_off(card, monkeypatch, split):
+    """One tail shape with split-K (its plan) and without (SM_COUNT 1
+    leaves every grid unsplit): the same bytes as the plain version."""
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    b, h, w, ci, co, k = 16, 16, 8, 512, 512, 3
+    if not split:
+        monkeypatch.setattr(sc, "SM_COUNT", 1)
+    assert (sc.plan((b, h, w, ci), (co, k, k, ci), 1).split > 1) == split
+    x8, w8, factor, bias = _s8_case(7, b, h, w, ci, co, k, card)
+    kw = _s8_out_kwargs("s8-res8-relu", (b, h, w, co), co, card)
+    got = sc.s8_conv(x8, w8, factor, bias, 1, **kw)
+    want = sc.s8_conv_plain(x8, w8, factor, bias, 1, **kw)
+    torch.cuda.synchronize()
+    assert int((got != want).sum()) == 0
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,route", [
+    (2, 11, 7, 18, 128, "mma_sync"), (2, 9, 5, 256, 3, "mma_sync"),
+    (2, 9, 5, 256, 8, "wgmma"), (2, 9, 5, 48, 64, "mma_sync")])
+def test_s8_plan_routes_and_counts(card, b, h, w, ci, co, route):
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    x8, w8, factor, bias = _s8_case(ci + co, b, h, w, ci, co, 3, card)
+    assert sc.plan(tuple(x8.shape), tuple(w8.shape), 1).route == route
+    routed = dict(sc.launches_by_route)
+    got = sc.s8_conv(x8, w8, factor, bias, out_dtype=torch.float32)
+    assert sc.launches_by_route == {**routed, route: routed[route] + 1}
+    want = sc.s8_conv_plain(x8, w8, factor, bias, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert int((got != want).sum()) == 0
+
+
+def test_s8_wgmma_on_a_side_stream_and_in_a_cuda_graph(card):
+    """A split-K and an unsplit call on a non-default stream, and both
+    captured in one CUDA graph replayed twice (the workspace's memset is
+    replayed with them): the same bytes each time."""
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    cases = []
+    for seed, (b, h, w, ci, co) in enumerate([(16, 8, 4, 640, 640),
+                                              (16, 64, 32, 256, 256)]):
+        x8, w8, factor, bias = _s8_case(seed, b, h, w, ci, co, 3, card)
+        kw = _s8_out_kwargs("s8-res8-relu", (b, h, w, co), co, card)
+        cases.append((x8, w8, factor, bias, kw))
+    assert [sc.plan(tuple(c[0].shape), tuple(c[1].shape), 1).split > 1
+            for c in cases] == [True, False]
+    want = [sc.s8_conv_plain(*c[:4], **c[4]) for c in cases]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [sc.s8_conv(*c[:4], **c[4]) for c in cases]
+    side.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [sc.s8_conv(*c[:4], **c[4]) for c in cases]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
+
+
+def test_s8_wgmma_refuses_bad_inputs(card):
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    x8, w8, factor, bias = _s8_case(0, 1, 6, 4, 18, 8, 3, card)
+    with pytest.raises(ValueError, match="wgmma"):
+        sc.s8_conv_cuda(x8, w8, factor, bias, route="wgmma")
+    with pytest.raises(ValueError, match="route"):
+        sc.s8_conv_cuda(x8, w8, factor, bias, route="cudnn")
+    x8, w8, factor, bias = _s8_case(0, 1, 6, 4, 64, 8, 3, card)
+    shifted = torch.empty(x8.numel() + 1, dtype=torch.int8,
+                          device=card)[1:].view(x8.shape)
+    shifted.copy_(x8)
+    with pytest.raises(ValueError, match="aligned"):
+        sc.s8_conv_cuda(shifted, w8, factor, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.s8_conv_cuda(x8.transpose(1, 2), w8, factor, bias)
 
 
 @pytest.mark.parametrize("kw", [
