@@ -145,10 +145,32 @@ Phases, each printing one line; any failure exits non-zero:
               the s8 conv by the PyTorch op that launched it; card vs CPU
               at batch 2 within the CPU's own int8-vs-float32 gap.
 
+16. df256    the DeepFashion 256x256 family at full width (hidden 128,
+              z 64, 7 x 32-d codes at ROI 64, repeat_num 6): models 101
+              (on DeepFashion-flavoured tfrecords: pose_mask_r4 /
+              pose_mask_r8) -> 102 -> 103 (`fresh`) -> 104 through the
+              CLI at batch 6, DF_STEPS steps each, each on the port
+              checkpoints of the stages before it (phase 10's checks: per-
+              step ms, finite metrics, the checkpoint, frozen nets, critics
+              within +-0.01, 6 encoder runs per model-103 step, pose
+              launches), model 101 resumed, and each step's device ms per
+              phase (utils/profiling.py) at float32 and bf16 for 101;
+              models 1001 and 1002 (--sample_fg) through the CLI on those
+              checkpoints at batch 16, DF_TEST_BATCHES batches, in float32,
+              bf16 and int8 (trees, no RANDOM-init line, pose and s8
+              launches per path); model 1001's device ms per stage at each
+              precision and its int8 batch by op (torch.profiler); the s8
+              conv on every conv shape of one int8 model-1001 batch, as in
+              phase 14 (its plain float64 conv on the whole batch); card vs
+              CPU at batch 2: one model-1001 batch (phase 5's tolerance and
+              TF32 control) and one model-101 step (phase 7's). The pose
+              kernel at 256x256 for B = 6 and 16 is in phase 3.
+
 The line before the last is {"kernels": [...]}: the pose kernel with its
 launches on each path, and the s8 conv's two routes, each with its
 launches on the int8 paths and its times summed over its calls of one
-int8 batch; the last line is {"ok": true, "device": {...}}.
+int8 model-12 batch, and under "df256" over one int8 model-1001 batch at
+256x256; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -175,7 +197,8 @@ INT32_OPS_PER_S = 16.75e12
 # output element, and about 20 per keypoint and row for its column span.
 RASTER_OPS_PER_ELEMENT, RASTER_OPS_PER_SPAN = 3, 20
 MARKET = dict(b=16, h=128, w=64, k=18)
-RASTER_SHAPES = {"Market": MARKET, "256x256": dict(b=16, h=256, w=256, k=18)}
+RASTER_SHAPES = {"Market": MARKET, "256x256": dict(b=16, h=256, w=256, k=18),
+                 "256x256 B=6": dict(b=6, h=256, w=256, k=18)}
 # Card vs CPU limit on max |diff| of g_raw and of the D score, batch 2 at
 # full width. Both sides float32; cuDNN and the CPU's conv kernels sum in
 # other orders through ~50 conv layers. On an NVIDIA H100 80GB HBM3 at
@@ -482,10 +505,18 @@ def _raw_outputs_unguarded(tester, batch):
         jb = batch_to_device(batch, tester.device)
         bbox, vis = select_parts(jb["part_bbox"], jb["part_vis"],
                                  cfg.roi_part_num)
-        embs = s1.encoder(jb["x"], jb["mask_r6"], bbox, vis)
+        embs = _encoder_call(s1, jb["x"], jb["mask_r6"], bbox, vis)
         g_raw, _ = s1.generator(
             embs, pose_maps_from_batch(jb, cfg, "pose_rcv_target"))
         return g_raw.cpu(), s1.disc(g_raw, train=True).cpu()
+
+
+def _encoder_call(app, x, mask, bbox, vis):
+    """The Stage-I encoder module called straight: the FG/BG one reads the
+    mask, the single-branch one (the 256 family) does not."""
+    if app.fg_bg:
+        return app.encoder(x, mask, bbox, vis)
+    return app.encoder(x, bbox, vis)
 
 
 def _set_tf32(on: bool):
@@ -869,14 +900,15 @@ def _train_step_unguarded(app, state, batch, mark):
     from dpig_tpu_torch.apps.common import l1_loss, masked_l1_loss
     from dpig_tpu_torch.losses import gan
     x, pose, mask, bbox, vis = app.step_inputs(batch)
-    g_raw, _ = app.generator(app.encoder(x, mask, bbox, vis), pose)
+    g_raw, _ = app.generator(_encoder_call(app, x, mask, bbox, vis), pose)
     adv = gan.g_loss("dcgan", app.disc(g_raw))
     l1 = l1_loss(g_raw, x)
     g_total = adv + app.cfg.L1Loss_weight * l1
     state.g_opt.step(torch.autograd.grad(g_total, state.g_params))
     mark("g_update")
     with torch.no_grad():
-        fake, _ = app.generator(app.encoder(x, mask, bbox, vis), pose)
+        fake, _ = app.generator(_encoder_call(app, x, mask, bbox, vis),
+                                pose)
     d_total = gan.d_loss("dcgan", app.disc(x, update_stats=True),
                          app.disc(fake, update_stats=True))
     state.d_opt.step(torch.autograd.grad(d_total, state.d_params))
@@ -899,48 +931,80 @@ def _l1_term_only():
         gan.g_loss = g_loss
 
 
-def phase_train_parity(model_dir):
+def _float64(app):
+    """A Stage1App's nets with their parameters and their layers' compute
+    dtype (models/layers.py) in float64; the generator's embedding-stem
+    term stays float32 (models/generator.py)."""
+    for net in (app.encoder, app.generator, app.disc):
+        net.to(torch.float64)
+        for m in net.modules():
+            if isinstance(getattr(m, "dtype", None), torch.dtype):
+                m.dtype = torch.float64
+    return app
+
+
+def phase_train_parity(model_dir, size=None, fg_bg=True,
+                       tag="[train parity]", tol=None, df256=False):
     """One train step, batch 2 at full width, default variant, from the
     same weights on the card and on the CPU, the card's D step from the
     CPU's updated G: float32, with the TF32 flags on, and two controls with
     TF32 on (past the float32 guard; the forwards alone guarded, so TF32 in
     the backward passes alone). Then the same with the L1 term alone as
-    the G objective (see TRAIN_PARITY_TOL)."""
+    the G objective (see TRAIN_PARITY_TOL). `size` (Config fields) and
+    `fg_bg` pick the model: Market model 1 by default.
+
+    `tol` replaces TRAIN_PARITY_TOL. `df256`: the CPU's float32 step is
+    also read against the same step in float64 (the yardstick of what
+    float32 can give), and the D-backward TF32 control is shown, not
+    required (see DF_TRAIN_PARITY_TOL)."""
     from dpig_tpu_torch.apps.stage1_app import Stage1App
     from dpig_tpu_torch.config import Config
     from dpig_tpu_torch.data.synthetic import SyntheticLoader
     from dpig_tpu_torch.train.parity import recorded_train_step, step_errors
-    batch = next(SyntheticLoader(2, 128, 64, seed=99))
-    cfgs = {p: Config(platform=p, batch_size=2, model_dir=model_dir)
+    size = size or {}
+    cfgs = {p: Config(platform=p, batch_size=2, model_dir=model_dir, **size)
             for p in ("", "cpu")}
+    batch = next(SyntheticLoader(2, cfgs[""].img_H, cfgs[""].img_W,
+                                 seed=99))
     runs = {"float32": (False, None), "TF32 flags on": (True, None),
             "control: past the guard, TF32": (True, _train_step_unguarded),
             "control: forwards guarded only, TF32": (
                 True, Stage1App.train_step.__wrapped__)}
-    errs = {}
+    errs, gaps = {}, {}
     for term, context in (("G objective", contextlib.nullcontext),
                           ("L1 term", _l1_term_only)):
         with context():
             ref = recorded_train_step(
-                Stage1App(cfgs["cpu"], torch.device("cpu")), batch)
+                Stage1App(cfgs["cpu"], torch.device("cpu"), fg_bg=fg_bg),
+                batch)
+            if df256 and term == "G objective":
+                gaps[term] = step_errors(recorded_train_step(
+                    _float64(Stage1App(cfgs["cpu"], torch.device("cpu"),
+                                       fg_bg=fg_bg)), batch,
+                    g_updated=ref.g_updated), ref)
             for label, (tf32, step_fn) in runs.items():
                 if term == "L1 term" and "past the guard" in label:
                     continue
                 _set_tf32(tf32)
                 try:
                     got = recorded_train_step(
-                        Stage1App(cfgs[""], torch.device("cuda")), batch,
+                        Stage1App(cfgs[""], torch.device("cuda"),
+                                  fg_bg=fg_bg), batch,
                         step_fn, g_updated=ref.g_updated)
                 finally:
                     _set_tf32(False)
                 errs[term, label] = step_errors(ref, got)
             del ref, got
-    tols = {"G objective": TRAIN_PARITY_TOL, "L1 term": L1_GRAD_TOL}
+    tols = {"G objective": tol or TRAIN_PARITY_TOL, "L1 term": L1_GRAD_TOL}
+    for term, gap in gaps.items():
+        print(f"{tag} {term}, the CPU's float32 step against its float64 "
+              f"step: " + ", ".join(f"{k} {v:.3e}" for k, v in gap.items()),
+              flush=True)
     for (term, label), e in errs.items():
-        print(f"[train parity] {term}, {label}: " + ", ".join(
+        print(f"{tag} {term}, {label}: " + ", ".join(
             f"{k} {v:.3e}" for k, v in e.items()
             if term == "G objective" or k.split()[0] in G_NETS), flush=True)
-    print(f"[train parity] card vs CPU, one step, batch 2 at full width "
+    print(f"{tag} card vs CPU, one step, batch 2 at full width "
           f"(losses: relative diff; sub-nets: gradient ||diff|| / ||grad||, "
           f"'max': max|diff| / max|grad|; d_stats: max abs diff); "
           f"tolerances {tols}", flush=True)
@@ -951,14 +1015,41 @@ def phase_train_parity(model_dir):
                                      f"beyond the tolerances ({term}, "
                                      f"{label})")
     guarded_forwards = "control: forwards guarded only, TF32"
-    for term, label, keys in (
-            ("G objective", "control: past the guard, TF32", G_NETS),
-            ("G objective", guarded_forwards, ("Discriminator",)),
-            ("L1 term", guarded_forwards, ("ID_AE",))):
+    controls = [("G objective", "control: past the guard, TF32", G_NETS),
+                ("L1 term", guarded_forwards, ("ID_AE",))]
+    if not df256:
+        controls.append(("G objective", guarded_forwards,
+                         ("Discriminator",)))
+    for term, label, keys in controls:
         if any(errs[term, label][k] <= tols[term][k] for k in keys):
             raise AssertionError(f"a TF32 train step passes the {keys} "
                                  f"gradient tolerance ({term}, {label}): "
                                  f"the check cannot see TF32")
+
+
+def _timed_steps(classes, steps, encoder_calls):
+    """Patch each class's train_step (`classes`: model -> app class) to
+    append (ms, encoder calls, all metrics finite) of each step to
+    `steps[model]`, synchronized so that the ms are the card's; the
+    encoder calls are read from the counter `encoder_calls[0]` -> the
+    original methods, to restore."""
+    originals = {m: cls.train_step for m, cls in classes.items()}
+
+    def timed(model, step):
+        def run(app, state, *args):
+            calls, t0 = encoder_calls[0], time.perf_counter()
+            out = step(app, state, *args)
+            torch.cuda.synchronize()
+            steps[model].append(((time.perf_counter() - t0) * 1e3,
+                                 encoder_calls[0] - calls,
+                                 all(bool(torch.isfinite(v).all())
+                                     for v in out.values())))
+            return out
+        return run
+
+    for m, cls in classes.items():
+        cls.train_step = timed(m, originals[m])
+    return originals
 
 
 def phase_stage2_train(tmp, m1_dir):
@@ -979,24 +1070,11 @@ def phase_stage2_train(tmp, m1_dir):
         if isinstance(module, RoiEncoderFgBg):
             encoder_calls[0] += 1
 
-    def timed(model, step):
-        def run(app, state, *args):  # synchronized, so ms are the card's
-            calls, t0 = encoder_calls[0], time.perf_counter()
-            out = step(app, state, *args)
-            torch.cuda.synchronize()
-            steps[model].append(((time.perf_counter() - t0) * 1e3,
-                                 encoder_calls[0] - calls,
-                                 all(bool(torch.isfinite(v).all())
-                                     for v in out.values())))
-            return out
-        return run
-
     def recorded_sample_step(self, *args, **kwargs):
         testers.append(self)
         return sample_step(self, *args, **kwargs)
 
     classes = {2: Stage1PoseApp, 3: Stage2AppApp, 4: Stage2PoseApp}
-    originals = {m: cls.train_step for m, cls in classes.items()}
     sample_step = FullSamplingTester.sample_step
     common = ["--synthetic_data=true"]
     argv = {
@@ -1017,8 +1095,7 @@ def phase_stage2_train(tmp, m1_dir):
     out11 = io.StringIO()
     hook = torch.nn.modules.module.register_module_forward_hook(
         count_encoder)
-    for m, cls in classes.items():
-        cls.train_step = timed(m, originals[m])
+    originals = _timed_steps(classes, steps, encoder_calls)
     FullSamplingTester.sample_step = recorded_sample_step
     try:
         for m in (2, 3, 4, 11):
@@ -1553,7 +1630,7 @@ def _im2col(x8, k, stride):
     return cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * ci)
 
 
-def _int_mm_ms(c):
+def _int_mm_ms(c, reps=25, inner=20):
     """Device ms of `torch._int_mm` on the call's im2col matrix [M, K]
     (built before the timed window) times its weights [K, N]: the integer
     product alone, a yardstick the port never calls. None where _int_mm
@@ -1566,10 +1643,10 @@ def _int_mm_ms(c):
         torch.cuda.synchronize()
     except RuntimeError:
         return None
-    return _graph_ms(lambda: torch._int_mm(a, b))
+    return _graph_ms(lambda: torch._int_mm(a, b), reps=reps, inner=inner)
 
 
-def _s8_route_entry(route, rows):
+def _s8_route_entry(route, rows, per):
     """The kernels-line entry of one s8 route: its times, bound and
     yardsticks summed over its calls of one int8 batch."""
     mine = [r for r in rows if r["route"] == route]
@@ -1598,7 +1675,7 @@ def _s8_route_entry(route, rows):
             "mma_sync_ms": per_batch("mma_sync_ms"),
             "cudnn_bf16_ms": per_batch("cudnn_bf16_ms"),
             "per": f"its {sum(r['launches_per_batch'] for r in mine)} calls "
-                   "of one int8 model-12 batch of 16",
+                   f"of {per}",
             "shapes": mine}
 
 
@@ -1615,14 +1692,31 @@ def phase_s8_conv():
     from dpig_tpu_torch.apps.testers import ConditionalTransferTester
     from dpig_tpu_torch.config import Config
     from dpig_tpu_torch.data.synthetic import SyntheticLoader
-    from dpig_tpu_torch.kernels import s8_conv as sc
-    from dpig_tpu_torch.models.layers import conv2d_same
 
     tester = ConditionalTransferTester(Config(inference_dtype="int8",
                                               int8_selfcheck=False))
     batch = batch_to_device(next(SyntheticLoader(16, 128, 64, seed=5)),
                             tester.device)
     tester._inference_params(batch)
+    entries, n_calls = _s8_table(tester, batch, "[s8 conv]",
+                                 "one int8 model-12 batch of 16")
+    if n_calls != S8_ENCODER_CONVS + S8_GENERATOR_CONVS:
+        raise AssertionError(f"{n_calls} s8 launches in one batch")
+    return entries
+
+
+def _s8_table(tester, batch, tag, per, reps=25, inner=20):
+    """Every s8 conv call of one `transfer_step` of the calibrated int8
+    `tester` on the device `batch`, grouped by shape: each bit-equal to
+    the plain version on its route and on mma_sync, with the times of
+    both kernels, the plain version, cuDNN's bf16 conv and
+    `torch._int_mm`, the bound and its share, printed under `tag` ->
+    (the two routes' entries summed per batch, the number of calls).
+    `reps` / `inner` set the CUDA-graph timing of the kernels and the
+    yardsticks."""
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    from dpig_tpu_torch.models.layers import conv2d_same
+
     calls = _record_s8_calls(lambda: tester.transfer_step(batch))
     shapes = {}
     for c in calls:
@@ -1639,16 +1733,18 @@ def phase_s8_conv():
             torch.cuda.synchronize()
             differ[route] = int((got != want).sum())
             err = max(err, float((got.float() - want.float()).abs().max()))
+        del got, want
         worst = max(worst, *differ.values())
-        ms = _graph_ms(lambda: sc.s8_conv_cuda(**c))
+        timed = functools.partial(_graph_ms, reps=reps, inner=inner)
+        ms = timed(lambda: sc.s8_conv_cuda(**c))
         mma_ms = (ms if how.route == "mma_sync" else
-                  _graph_ms(lambda: sc.s8_conv_cuda(**c, route="mma_sync")))
+                  timed(lambda: sc.s8_conv_cuda(**c, route="mma_sync")))
         plain_ms = _graph_ms(lambda: sc.s8_conv_plain(**c), reps=3, inner=2)
         xb = c["x8"].to(torch.bfloat16).permute(0, 3, 1, 2)
         wb = c["w8"].to(torch.bfloat16).permute(0, 3, 1, 2).contiguous()
-        cudnn_ms = _graph_ms(lambda: conv2d_same(xb, wb, None, stride))
+        cudnn_ms = timed(lambda: conv2d_same(xb, wb, None, stride))
         del xb, wb
-        int_mm_ms = _int_mm_ms(c)
+        int_mm_ms = _int_mm_ms(c, reps, inner)
         bound_ms, bound_by, ops = _s8_bound_ms(c)
         row = dict(x=key[0], w=key[1], stride=stride, out=key[3],
                    res=key[4], route=how.route, tile=[how.bm, how.bn],
@@ -1660,7 +1756,7 @@ def phase_s8_conv():
                    tops=ops / ms / 1e9)
         rows.append(row)
         imm = ("n/a" if int_mm_ms is None else f"{int_mm_ms * 1e3:.1f} us")
-        print(f"[s8 conv] x{key[0]} w{key[1]} stride {stride} out {key[3]}"
+        print(f"{tag} x{key[0]} w{key[1]} stride {stride} out {key[3]}"
               f" res {key[4]}: {len(group)} per batch, {how.route} "
               f"{how.bm}x{how.bn} split {how.split}, differing {differ}; "
               f"{how.route} {ms * 1e3:.1f} us ({ops / ms / 1e9:.1f} TOP/s, "
@@ -1668,11 +1764,11 @@ def phase_s8_conv():
               f"{bound_by} bound), mma_sync {mma_ms * 1e3:.1f} us, plain "
               f"{plain_ms * 1e3:.1f} us, cuDNN bf16 conv "
               f"{cudnn_ms * 1e3:.1f} us, torch._int_mm {imm}", flush=True)
-    entries = {r: _s8_route_entry(r, rows) for r in sc.ROUTES}
+    entries = {r: _s8_route_entry(r, rows, per) for r in sc.ROUTES}
     for route, e in entries.items():
         imm = ("n/a" if e["library_ms"] is None
                else f"{e['library_ms']:.3f} ms")
-        print(f"[s8 conv] one int8 model-12 batch of 16, {e['per']} "
+        print(f"{tag} {per}, {e['per']} "
               f"({route}): {e['ms']:.3f} ms (mma_sync kernel on the same "
               f"calls {e['mma_sync_ms']:.3f} ms), plain {e['plain_ms']:.3f} "
               f"ms, bound {e['bound_ms']:.3f} ms "
@@ -1681,7 +1777,7 @@ def phase_s8_conv():
               flush=True)
     total = {k: sum(e[k] for e in entries.values())
              for k in ("ms", "mma_sync_ms", "bound_ms", "cudnn_bf16_ms")}
-    print(f"[s8 conv] one int8 model-12 batch of 16: {len(calls)} launches "
+    print(f"{tag} {per}: {len(calls)} launches "
           f"on {len(rows)} shapes, {total['ms']:.3f} ms as routed (all on "
           f"the mma_sync kernel {total['mma_sync_ms']:.3f} ms), bound "
           f"{total['bound_ms']:.3f} ms ({total['bound_ms'] / total['ms']:.1%}"
@@ -1689,9 +1785,7 @@ def phase_s8_conv():
           f"{total['cudnn_bf16_ms']:.3f} ms", flush=True)
     if worst:
         raise AssertionError("the s8 conv differs from its plain version")
-    if len(calls) != S8_ENCODER_CONVS + S8_GENERATOR_CONVS:
-        raise AssertionError(f"{len(calls)} s8 launches in one batch")
-    return entries
+    return entries, len(calls)
 
 
 def _run_cli_s8(argv):
@@ -1744,18 +1838,19 @@ def _self_device_us(evt) -> float:
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def _int8_remainder(kernels, ops):
+def _int8_remainder(kernels, ops, tag="[int8]",
+                    what="model 12 int8 batch of 16"):
     """Prints the int8 batch's device time in the s8 conv and, outside it,
     by the PyTorch op that launched it (self device time), top 10."""
     us = sum(e.time_range.elapsed_us() for e in kernels)
     s8 = [e for e in kernels if "s8_conv" in e.name]
     s8_us = sum(e.time_range.elapsed_us() for e in s8)
-    print(f"[int8] model 12 int8 batch of 16 under torch.profiler: device "
+    print(f"{tag} {what} under torch.profiler: device "
           f"kernels {us / 1e3:.3f} ms in {len(kernels)} launches; the s8 "
           f"conv {s8_us / 1e3:.3f} ms in {len(s8)}; outside it "
           f"{(us - s8_us) / 1e3:.3f} ms", flush=True)
     for e in ops[:10]:
-        print(f"[int8]   outside the s8 conv: {e.key} "
+        print(f"{tag}   outside the s8 conv: {e.key} "
               f"{_self_device_us(e) / 1e3:.3f} ms device, {e.count} calls",
               flush=True)
 
@@ -1868,6 +1963,333 @@ def phase_int8(tmp):
     return s8_launches, pose_launches
 
 
+# ------------------------------------------------ DeepFashion 256x256
+# The DeepFashion family at full width (256x256, hidden 128, z 64, 7 x 32-d
+# ROI codes at ROI 64, repeat_num 6): Stage I at batch 6 as
+# run_DF_train.sh trains it, the testers at batch 16.
+DF = dict(img_H=256, img_W=256)
+DF_TRAIN_BATCH = 6
+DF_STEPS, DF_LOG_STEP = 4, 1
+DF_TEST_BATCHES = 2
+DF_TRAIN_PAIRS = 36
+# Card vs CPU limits for one model-101 step, batch 2 at full 256 width
+# (keys of `train.parity.step_errors`; phase 7's method: between the
+# float32 and the TF32 readings). At 256 fresh nets are less well
+# conditioned than at Market: the D normalizes a batch of 2 nearly equal
+# fakes, and the adversarial G loss moves by about |logit| times its
+# logits' relative error. On an NVIDIA H100 80GB HBM3 at 700 W this phase
+# read in two runs, float32 (the same with the TF32 flags on): G-step
+# losses 3.46e-5, d_loss 9.7e-7 to 6.7e-6, Encoder 3.07e-3, ID_AE 5.08e-3,
+# Discriminator 1.9e-3 to 3.6e-3, d_stats 2.9e-6 to 3.1e-6; the CPU's own
+# float32 step against its float64 step 1.1e-7, 2.1e-6 to 2.8e-6, 4.5e-3,
+# 4.3e-3, 6.1e-3 to 6.4e-3, 8.8e-7 to 1.2e-6 (so float32 holds these
+# gradients to ~5e-3 here, and the card's loss is the one off); past the
+# float32 guard with TF32 on: 2.85e-2, 3.3e-5 to 3.5e-4, 1.39e-1,
+# 1.18e-1, 5.4e-2 to 5.7e-2, 6.1e-4 to 6.7e-4. The D step's readings move
+# between runs, so d_loss is held at 3e-5, 4.5x the larger float32 one.
+# TF32 in the backward passes alone moves the D's gradients less than
+# float32 can resolve (2.7e-3 to 4.3e-3), so here the L1 term's generator
+# gradients (phase 7's L1_GRAD_TOL) show a TF32 backward instead.
+# Market's d_stats limit is kept.
+DF_TRAIN_PARITY_TOL = {"g_step_losses": 1e-4, "d_loss": 3e-5,
+                       "Encoder": 1.5e-2, "ID_AE": 1.5e-2,
+                       "Discriminator": 2e-2, "d_stats": 1e-5}
+DF_PRECISIONS = {"float32": [], "bf16": ["--compute_dtype=bfloat16"],
+                 "int8": ["--inference_dtype=int8"]}
+
+
+def phase_df256_train(tmp):
+    """Models 101 (on DeepFashion-flavoured tfrecords) -> 102 -> 103 ->
+    104 through the CLI at full 256 width, batch 6, each on the port's
+    checkpoints of the stages before it: per-step ms, finite metrics, the
+    checkpoints (frozen nets equal to their sources, critics within
+    +-0.01), 6 encoder runs per model-103 step, pose launches; model 101
+    resumed by a fresh Trainer; each step's device ms per phase
+    (utils/profiling.py) -> (model dirs, pose launches by path)."""
+    from dpig_tpu_torch.apps.common import batch_to_device
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.apps.stage1_pose import Stage1PoseApp
+    from dpig_tpu_torch.apps.stage2_app_single import Stage2AppSingleApp
+    from dpig_tpu_torch.apps.stage2_pose import Stage2PoseApp
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data.synthetic import (SyntheticLoader,
+                                               write_synthetic_tfrecords)
+    from dpig_tpu_torch.models.encoders import RoiEncoder
+    from dpig_tpu_torch.train import checkpoint as ckpt
+    from dpig_tpu_torch.train.harness import Trainer
+    from dpig_tpu_torch.utils import profiling
+
+    data_dir = os.path.join(tmp, "df_data")
+    t0 = time.perf_counter()
+    shards = write_synthetic_tfrecords(
+        os.path.join(data_dir, "DF_img_pose"), "train", DF_TRAIN_PAIRS, 256,
+        256, seed=7, n_shards=2, name="DF_img_pose")
+    print(f"[df256] wrote {DF_TRAIN_PAIRS} DeepFashion-flavoured train "
+          f"pairs at 256x256 (pose_mask_r4 / pose_mask_r8): "
+          f"{sum(os.path.getsize(p) for p in shards) / 2 ** 20:.1f} MiB in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    dirs = {m: os.path.join(tmp, f"df{m}") for m in (101, 102, 103, 104)}
+    size = ["--img_H=256", "--img_W=256", f"--batch_size={DF_TRAIN_BATCH}",
+            f"--max_step={DF_STEPS}", f"--log_step={DF_LOG_STEP}"]
+    argv = {101: ["--model=101", f"--data_dir={data_dir}",
+                  "--dataset=DF_img_pose", "--num_worker=2"],
+            102: ["--model=102", "--synthetic_data=true"],
+            103: ["--model=103", "--synthetic_data=true",
+                  f"--pretrained_path={dirs[101]}"],
+            104: ["--model=104", "--synthetic_data=true",
+                  f"--pretrained_path={dirs[101]}",
+                  f"--pretrained_poseAE_path={dirs[102]}"]}
+    classes = {101: Stage1App, 102: Stage1PoseApp, 103: Stage2AppSingleApp,
+               104: Stage2PoseApp}
+    steps = {m: [] for m in classes}
+    encoder_calls = [0]
+
+    def count_encoder(module, args, out):
+        if isinstance(module, RoiEncoder):
+            encoder_calls[0] += 1
+
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        count_encoder)
+    originals = _timed_steps(classes, steps, encoder_calls)
+    launches, walls, encoder_total = {}, {}, {}
+    try:
+        for m in classes:
+            calls = encoder_calls[0]
+            launches[m], walls[m] = _run_cli(
+                [*argv[m], *size, f"--model_dir={dirs[m]}"])
+            encoder_total[m] = encoder_calls[0] - calls
+    finally:
+        hook.remove()
+        for m, cls in classes.items():
+            cls.train_step = originals[m]
+
+    failures = []
+    trees = {m: ckpt.load_tree(dirs[m]) for m in classes}
+    s1 = {k: trees[101]["g_params"][k] for k in ("Encoder", "ID_AE")}
+    frozen_want = {103: s1,
+                   104: {**s1, "PoseAE": trees[102]["g_params"]["PoseAE"]}}
+    previews = _previews(DF_STEPS, DF_LOG_STEP)
+    for m in classes:
+        with open(os.path.join(dirs[m], "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        ms = [x[0] for x in steps[m]]
+        tree = trees[m]
+        critic_max = max((float(t.abs().max()) for sub in
+                          tree.get("d_params", {}).values()
+                          for t in sub.values()), default=None)
+        frozen_ok = (not _tree_differences(tree["frozen_params"],
+                                           frozen_want[m])
+                     if m in frozen_want else "frozen_params" not in tree)
+        per_step_encoder = sorted({x[1] for x in steps[m]})
+        want = {101: DF_STEPS + 1 + previews, 102: 1}.get(m, 1 + previews)
+        print(f"[df256] model {m} (CLI, 256x256, batch {DF_TRAIN_BATCH}, "
+              f"{DF_STEPS} steps{', tfrecords' if m == 101 else ''}): wall "
+              f"{walls[m]:.1f} s; per-step ms after the first "
+              f"{[round(x, 2) for x in ms[1:]]} (first {ms[0]:.1f}); "
+              f"{DF_TRAIN_BATCH * 1e3 / statistics.median(ms[1:]):.2f} "
+              f"images/s at the median; metrics.jsonl steps "
+              f"{[r['step'] for r in logged]}; encoder calls per step "
+              f"{per_step_encoder}, in all {encoder_total[m]}; pose kernel "
+              f"launches {launches[m]} (expected {want}); checkpoint step "
+              f"{tree['step']}, critic max |w| {critic_max}, frozen nets "
+              f"equal to their sources: {frozen_ok}", flush=True)
+        want_steps = [s for s in range(DF_STEPS)
+                      if s == 0 or s % DF_LOG_STEP == DF_LOG_STEP - 1]
+        if (launches[m] != want or len(steps[m]) != DF_STEPS
+                or not all(x[2] for x in steps[m])
+                or [r["step"] for r in logged] != want_steps
+                or not all(np.isfinite(v) for r in logged
+                           for v in r.values())
+                or tree["step"] != DF_STEPS or not frozen_ok
+                or (critic_max is not None and m != 101
+                    and critic_max > 0.01)):
+            failures.append(f"model {m}")
+    if sorted({x[1] for x in steps[103]}) != [6] or \
+            encoder_total[103] != 6 * DF_STEPS:
+        failures.append(f"model 103: encoder calls {steps[103]}")
+    if sorted({x[1] for x in steps[101]}) != [2]:  # G step + re-forward
+        failures.append(f"model 101: encoder calls {steps[101]}")
+
+    cfg = Config(model_dir=dirs[101], max_step=DF_STEPS, log_step=DF_LOG_STEP,
+                 batch_size=DF_TRAIN_BATCH, **DF)
+    app = Stage1App(cfg, torch.device("cuda"), fg_bg=False)
+    resumed = ckpt.state_tree(Trainer(cfg, app, SyntheticLoader(
+        DF_TRAIN_BATCH, 256, 256)).init_state())
+    unequal = _tree_differences(resumed, trees[101])
+    print(f"[df256] resume: a fresh model-101 Trainer starts at step "
+          f"{resumed['step']}, equal to the checkpoint: {not unequal}",
+          flush=True)
+    if resumed["step"] != DF_STEPS or unequal:
+        failures.append("model 101 resume")
+    del app, resumed
+
+    host = [next(SyntheticLoader(DF_TRAIN_BATCH, 256, 256, seed=s))
+            for s in range(6)]
+    dev = [batch_to_device(b, torch.device("cuda")) for b in host]
+    for dtype in ("float32", "bfloat16"):
+        app = Stage1App(Config(batch_size=DF_TRAIN_BATCH,
+                               compute_dtype=dtype, **DF),
+                        torch.device("cuda"), fg_bg=False)
+        ms = profiling.train_phase_ms(app, app.init_state(), dev[0], reps=2)
+        print(f"[df256] model-101 train step device ms per phase, {dtype}, "
+              f"batch {DF_TRAIN_BATCH}: "
+              f"{ {k: round(v, 3) for k, v in ms.items()} } sum "
+              f"{sum(ms.values()):.3f}", flush=True)
+        del app
+    gen = torch.Generator().manual_seed(0)
+    frozen = ckpt.restore_subtrees(dirs[101], ["Encoder", "ID_AE"])
+    frozen.update(ckpt.restore_subtrees(dirs[102], ["PoseAE"]))
+    for m, cls in ((103, Stage2AppSingleApp), (104, Stage2PoseApp)):
+        app = cls(Config(batch_size=DF_TRAIN_BATCH, **DF),
+                  torch.device("cuda"), frozen)
+        ms = profiling.stage2_phase_ms(app, app.init_state(), tuple(dev),
+                                       app.step_noise(gen, DF_TRAIN_BATCH),
+                                       reps=2)
+        print(f"[df256] model-{m} train step device ms per phase (fresh, "
+              f"batch {DF_TRAIN_BATCH}): "
+              f"{ {k: round(v, 3) for k, v in ms.items()} } sum "
+              f"{sum(ms.values()):.3f}", flush=True)
+        del app
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return dirs, {f"model {m} training (256)": launches[m] for m in classes}
+
+
+def phase_df256_test(tmp, dirs):
+    """Models 1001 and 1002 (--sample_fg) through the CLI on the chain's
+    checkpoints, batch 16, DF_TEST_BATCHES batches, in float32, bf16 and
+    int8: the trees, no RANDOM-init line, the pose and s8 launches each
+    path must make -> (pose launches by path, s8 launches by path and
+    route)."""
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    flags = [f"--pretrained_path={dirs[101]}",
+             f"--pretrained_poseAE_path={dirs[102]}",
+             f"--pretrained_appSample_path={dirs[103]}",
+             f"--pretrained_poseSample_path={dirs[104]}"]
+    n = DF_TEST_BATCHES
+    trees = {1001: ("test_result", ("x", "x_target", "G", "pose",
+                                    "pose_target", "mask", "mask_target")),
+             1002: (f"test_result_ROI7_SampleFgTrueSampleBgFalseSamplePose"
+                    f"False_pretrain_{n}x16", ("x", "G", "pose"))}
+    pose_launches, s8_launches, failures = {}, {}, []
+    for model in (1001, 1002):
+        for prec, extra in DF_PRECISIONS.items():
+            out = os.path.join(tmp, f"df{model}_{prec}")
+            pose, s8, by_route, wall, text = _run_cli_s8(
+                [f"--model={model}", "--is_train=false", "--img_H=256",
+                 "--img_W=256", "--synthetic_data=true",
+                 f"--test_batch_num={n}", f"--model_dir={out}", *flags,
+                 *extra, *(["--sample_fg=true"] if model == 1002 else [])])
+            int8 = prec == "int8"
+            # 1001: the target and source pose maps per batch; 1002: the
+            # one real pose; int8 adds the calibration batch's pose maps
+            want_pose = n * (2 if model == 1001 else 1) + int8
+            # int8: the generator per batch plus the self-check pass, no
+            # int8 encoder at 256; the stem and to_rgb on mma_sync
+            want_s8 = (n + 1) * S8_GENERATOR_CONVS if int8 else 0
+            want_routes = ({"mma_sync": 2 * (n + 1),
+                            "wgmma": (n + 1) * (S8_GENERATOR_CONVS - 2)}
+                           if int8 else dict.fromkeys(sc.ROUTES, 0))
+            root = os.path.join(out, trees[model][0])
+            counts = {d: len(os.listdir(os.path.join(root, d)))
+                      for d in sorted(os.listdir(root))}
+            ssim = _selfcheck(text) if int8 else None
+            random_init = "RANDOM" in text
+            path = f"model {model} {prec} (256)"
+            print(f"[df256] {path}: {n} batches of 16 in {wall:.1f} s, "
+                  f"RANDOM-init line {random_init}, files {counts}, pose "
+                  f"kernel launches {pose} (expected {want_pose}), s8 conv "
+                  f"launches {s8} {by_route} (expected {want_s8} "
+                  f"{want_routes})"
+                  + (f", self-check SSIM(int8,float) {ssim:.4f}" if int8
+                     else ""), flush=True)
+            if (random_init or pose != want_pose or s8 != want_s8
+                    or by_route != want_routes
+                    or counts != dict.fromkeys(trees[model][1], n * 16)):
+                failures.append(path)
+            pose_launches[path] = pose
+            if int8:
+                s8_launches[path] = by_route
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return pose_launches, s8_launches
+
+
+def phase_df256_kernels(tmp):
+    """Model 1001 at batch 16: device ms per stage in float32, bf16 and
+    int8, the int8 batch by op under torch.profiler, and the s8 conv on
+    every conv shape of one int8 batch (bit-equal, timed); then card vs
+    CPU at batch 2 (float32, TF32 flags on, the control past the guard)
+    -> the s8 routes' entries summed over one int8 batch."""
+    from dpig_tpu_torch.apps.common import batch_to_device
+    from dpig_tpu_torch.apps.testers import ConditionalTransferTester
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data.synthetic import SyntheticLoader
+
+    batch = next(SyntheticLoader(16, 256, 256, seed=5))
+    f32 = ConditionalTransferTester(Config(model_dir=tmp, **DF))
+    kw = dict(model_dir=tmp, **DF)
+    testers = {"float32": f32,
+               "bfloat16": ConditionalTransferTester(Config(
+                   compute_dtype="bfloat16", **kw), params=f32.cpu_state()),
+               "int8": ConditionalTransferTester(Config(
+                   inference_dtype="int8", int8_selfcheck=False, **kw),
+                   params=f32.cpu_state())}
+    jb = batch_to_device(batch, f32.device)
+    testers["int8"]._inference_params(jb)
+    for name, t in testers.items():
+        ms, total = _stage_ms_sum(t, batch, reps=3)
+        kernels, ops = _profile_transfer(t, batch)
+        kernel_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        print(f"[df256] model 1001 device ms per batch of 16, {name}: "
+              f"{ {k: round(v, 3) for k, v in ms.items()} } sum {total:.3f};"
+              f" device kernels (torch.profiler) {kernel_ms:.3f}", flush=True)
+        if name == "int8":
+            _int8_remainder(kernels, ops, "[df256]",
+                            "model 1001 int8 batch of 16")
+        del kernels, ops
+    entries, n_calls = _s8_table(testers["int8"], jb, "[df256 s8]",
+                                 "one int8 model-1001 batch of 16",
+                                 reps=5, inner=3)
+    if n_calls != S8_GENERATOR_CONVS:
+        raise AssertionError(f"{n_calls} s8 launches in one 256 batch")
+    del testers, jb
+
+    cpu = ConditionalTransferTester(Config(platform="cpu", **kw),
+                                    params=f32.cpu_state())
+    small = next(SyntheticLoader(2, 256, 256, seed=99))
+    g_cpu, s_cpu = _raw_outputs(cpu, small)
+
+    def diff(outs):
+        return (float((outs[0] - g_cpu).abs().max()),
+                float((outs[1] - s_cpu).abs().max()))
+
+    sound = diff(_raw_outputs(f32, small))
+    _set_tf32(True)
+    try:
+        guarded = diff(_raw_outputs(f32, small))
+        tf32 = diff(_raw_outputs_unguarded(f32, small))
+    finally:
+        _set_tf32(False)
+    print(f"[df256 parity] model 1001, card vs CPU, batch 2 at full width, "
+          f"max|diff| of (g_raw, score): float32 {sound[0]:.3e}, "
+          f"{sound[1]:.3e}; with the TF32 flags on {guarded[0]:.3e}, "
+          f"{guarded[1]:.3e}; TF32 past the guard (control) {tf32[0]:.3e}, "
+          f"{tf32[1]:.3e}; tolerance {PARITY_TOL} (max|g_raw| "
+          f"{float(g_cpu.abs().max()):.3f}, max|score| "
+          f"{float(s_cpu.abs().max()):.3f})", flush=True)
+    if max(sound + guarded) > PARITY_TOL:
+        raise AssertionError("model 1001: card and CPU disagree beyond the "
+                             "tolerance")
+    if min(tf32) <= PARITY_TOL:
+        raise AssertionError("model 1001: a TF32 run passes the tolerance")
+    del cpu, f32
+    phase_train_parity(os.path.join(tmp, "df_parity"), DF, fg_bg=False,
+                       tag="[df256 train parity] model 101,",
+                       tol=DF_TRAIN_PARITY_TOL, df256=True)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card",
@@ -1893,12 +2315,25 @@ def main() -> int:
         bf16 = phase_bf16(tmp)
         s8 = phase_s8_conv()
         s8_by_path, int8_pose = phase_int8(tmp)
+        df_dirs, df_train = phase_df256_train(tmp)
+        df_pose, df_s8 = phase_df256_test(tmp, df_dirs)
+        df_entries = phase_df256_kernels(tmp)
     by_path = {"model 12 transfer": model12, **sampling,
                "model 1 training": train, **stage2, **data, **bf16,
-               **int8_pose}
+               **int8_pose, **df_train, **df_pose}
+    for path in (*df_train, *df_pose):
+        if not by_path[path]:
+            raise AssertionError(f"the pose kernel was not launched on "
+                                 f"{path}")
     kernel["launches"] = sum(by_path.values())
     kernel["launches_by_path"] = by_path
+    s8_by_path.update(df_s8)
     for route, entry in s8.items():
+        entry["df256"] = {k: df_entries[route][k] for k in (
+            "per", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "mma_sync_ms", "cudnn_bf16_ms", "max_abs_err", "shapes")}
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   df_entries[route]["max_abs_err"])
         entry["launches_by_path"] = {p: n[route]
                                      for p, n in s8_by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

@@ -1,10 +1,14 @@
-"""Stage-I appearance reconstruction, model 1 (port of
-`dpig_tpu/apps/stage1_app.py`; reference trainer.py:567-625).
+"""Stage-I appearance reconstruction, models 1 and 101 (port of
+`dpig_tpu/apps/stage1_app.py`; reference trainer.py:567-625,
+trainer_256.py:10-265).
 
-Market 128x64 family: FG/BG two-branch ROI encoder -> 352-d embedding +
-18-ch pose map -> U-net generator; DCGAN image discriminator; G loss =
-adv + 20*L1; 1 critic iteration per G iteration. `train_step` is one G
-update then one D update on the nets in place; `generate_step` /
+Market 128x64 family (model 1): FG/BG two-branch ROI encoder -> 352-d
+embedding + 18-ch pose map -> U-net generator; DCGAN image
+discriminator; G loss = adv + 20*L1; 1 critic iteration per G iteration.
+DeepFashion 256x256 family (model 101): the single-branch ROI encoder
+(224-d, ROI 64, repeat_num+1 stages), the generator at repeat_num-1 and
+a 5-stage D, with the same loss recipe. `train_step` is one G update
+then one D update on the nets in place; `generate_step` /
 `transfer_step` are the inference half the testers use.
 """
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 from ..config import Config
 from ..losses import gan
 from ..models.discriminators import get_discriminator
-from ..models.encoders import RoiEncoderFgBg
+from ..models.encoders import RoiEncoder, RoiEncoderFgBg
 from ..models.generator import UAEGenerator
 from ..models.layers import init_weights
 from ..train.state import GanState
@@ -66,11 +70,8 @@ class Stage1App:
     """
 
     def __init__(self, cfg: Config, device: torch.device,
-                 state: Optional[Mapping] = None, disc: bool = True):
-        if cfg.img_H >= 256:
-            raise NotImplementedError(
-                "the 256x256 family (models 101-104/1001/1002) is not ported "
-                'to dpig_tpu_torch yet (ROADMAP §1, "The 256 family")')
+                 state: Optional[Mapping] = None, disc: bool = True,
+                 fg_bg: bool = True):
         if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"--compute_dtype must be one of "
                              f"{sorted(COMPUTE_DTYPES)}, got "
@@ -78,21 +79,38 @@ class Stage1App:
         self.cfg = cfg
         self.device = device
         self.dtype = dtype = COMPUTE_DTYPES[cfg.compute_dtype]
-        self.encoder = RoiEncoderFgBg(
-            cfg.img_H, cfg.img_W, part_num=cfg.roi_part_num,
-            z_num=cfg.roi_z_num, repeat_num=cfg.repeat_num,
-            hidden_num=cfg.conv_hidden_num, roi_size=48, dtype=dtype)
+        # stage1_app.py:41-63: the FG/BG encoder exists only for the
+        # 128x64 family, so fg_bg is normalized as JAX does it; model 101
+        # at 128x64 gets the single branch at Market depths.
+        is_256 = cfg.img_H >= 256
+        self.fg_bg = fg_bg = fg_bg and not is_256
+        self.enc_repeat = cfg.repeat_num + 1 if is_256 else cfg.repeat_num
+        self.gen_repeat = cfg.repeat_num - 1 if is_256 else cfg.repeat_num
+        roi_size = 64 if is_256 else 48
+        self.emb_dim = cfg.roi_part_num * cfg.roi_z_num
+        if fg_bg:
+            self.encoder = RoiEncoderFgBg(
+                cfg.img_H, cfg.img_W, part_num=cfg.roi_part_num,
+                z_num=cfg.roi_z_num, repeat_num=self.enc_repeat,
+                hidden_num=cfg.conv_hidden_num, roi_size=roi_size,
+                dtype=dtype)
+            self.emb_dim += cfg.roi_z_num * 4
+        else:
+            self.encoder = RoiEncoder(
+                part_num=cfg.roi_part_num, z_num=cfg.roi_z_num,
+                repeat_num=self.enc_repeat, hidden_num=cfg.conv_hidden_num,
+                roi_size=roi_size, dtype=dtype)
         self.generator = UAEGenerator(
-            cfg.img_H, cfg.img_W,
-            emb_dim=cfg.roi_part_num * cfg.roi_z_num + cfg.roi_z_num * 4,
+            cfg.img_H, cfg.img_W, emb_dim=self.emb_dim,
             pose_ch=cfg.keypoint_num, out_channels=3, z_num=cfg.z_num,
-            repeat_num=cfg.repeat_num, hidden_num=cfg.conv_hidden_num,
+            repeat_num=self.gen_repeat, hidden_num=cfg.conv_hidden_num,
             dtype=dtype)
         modules = {"Encoder": self.encoder, "ID_AE": self.generator}
         self.disc = None
         if disc:
             self.disc = get_discriminator(cfg.D_arch, cfg.img_H, cfg.img_W,
-                                          n_stages=4, dtype=dtype)
+                                          n_stages=5 if is_256 else 4,
+                                          dtype=dtype)
             modules["Discriminator"] = self.disc
         state = state or {}
         gen = torch.Generator().manual_seed(cfg.random_seed)
@@ -108,7 +126,11 @@ class Stage1App:
     # ------------------------------------------------------------ forward
     @full_float32()
     def _encode(self, x, mask, bbox, vis) -> torch.Tensor:
-        return self.encoder(x, mask, bbox, vis).to(torch.float32)
+        """The appearance code; the fg mask is read by the FG/BG encoder
+        only (stage1_app.py:96-99)."""
+        if self.fg_bg:
+            return self.encoder(x, mask, bbox, vis).to(torch.float32)
+        return self.encoder(x, bbox, vis).to(torch.float32)
 
     @full_float32()
     def _generate(self, embs, pose) -> torch.Tensor:
@@ -117,7 +139,8 @@ class Stage1App:
 
     def g_forward(self, x, pose, mask, bbox, vis
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (g_raw [B,H,W,3] float32, embs [B,352])."""
+        """-> (g_raw [B,H,W,3] float32, embs [B, emb_dim]: 352 FG/BG, 224
+        single-branch)."""
         embs = self._encode(x, mask, bbox, vis)
         return self._generate(embs, pose), embs
 

@@ -9,7 +9,7 @@ frozen Stage-I encoder's embeddings: WGAN, RMSProp, one G update of the
 mappers, then CRITIC_ITERS critic iterations, each on fresh fakes from the
 updated mappers, each followed by clipping every critic parameter to
 +-0.01. Market only (the FG/BG split); DeepFashion's single mapper (model
-103) is the 256 family (ROADMAP §1, "The 256 family").
+103) is `stage2_app_single.py`.
 
 Batch forms, as in the JAX package: a sequence of 1+CRITIC_ITERS batches
 (`--critic_batch_mode=fresh`, the default: batches[0] feeds the G update

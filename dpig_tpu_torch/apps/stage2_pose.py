@@ -1,4 +1,4 @@
-"""Stage-II pose sampler, model 4 (port of
+"""Stage-II pose sampler, models 4 and 104 (port of
 `dpig_tpu/apps/stage2_pose.py:36-178`; reference trainer.py:870-1033
 DPIG_subnetSamplePoseRCV_GAN_BodyROI).
 
@@ -36,7 +36,8 @@ class Stage2PoseApp(WganSamplerApp):
                  frozen: Optional[Mapping] = None):
         super().__init__(cfg, device)
         self.pose_ae = Stage1PoseApp(cfg, device, frozen)
-        self.stage1 = Stage1App(cfg, device, state=frozen, disc=False)
+        self.stage1 = Stage1App(cfg, device, state=frozen, disc=False,
+                                fg_bg=cfg.img_H < 256)
         self.noise_dims = (POSE_Z,)
         self.mappers = {"PoseGaussian": GaussianMapper(POSE_Z, POSE_Z, 512)}
         self.critics = {"Pose_emb_FCDis": FCDiscriminator(POSE_Z)}

@@ -1,6 +1,10 @@
 """Inference testers (port of `dpig_tpu/apps/testers.py`, float32): model
-11 full sampling, model 12 pose transfer, model 13 factor sampling (Market
-only) and factor interpolation.
+11 full sampling, model 12 pose transfer, model 13 factor sampling and
+factor interpolation, and at 256x256 their DeepFashion twins, model 1001
+(transfer) and model 1002 (factor sampling with the single appearance
+mapper `Gaussian_FC`), whose Stage-I nets are the single-branch encoder
+and the generator at repeat_num-1 (`Stage1App(fg_bg=img_H < 256)`, as
+testers.py:91).
 
 Each writes the PNG directory tree that score.py consumes. Weights come
 from `params` (a `bridge.params_from_flax` state holding the tester's
@@ -34,8 +38,9 @@ sampled, the mappers when none is, and the pose AE's radius-0 preview.
 
 Precision (testers.py:148-257): `--compute_dtype=bfloat16` runs the
 Stage-I nets in bfloat16 and the generator as `quant.uae_forward_bf16`;
-`--inference_dtype=int8` (models 11, 12, 13) calibrates an int8 generator
-and ROI encoder on the first batch in `run()` (`_inference_params`; the
+`--inference_dtype=int8` (models 11, 12, 13, 1001, 1002) calibrates an
+int8 generator and, for the FG/BG encoder of the 128x64 family, an int8
+ROI encoder on the first batch in `run()` (`_inference_params`; the
 sampling testers add a batch of mapper-sampled embeddings drawn from a
 CPU torch.Generator seeded with `--random_seed`, or the noise the caller
 passes) and prints the SSIM of the int8 output against the float one on
@@ -115,13 +120,15 @@ def _save_batch_pngs(dirs: Dict[str, str], arrays: Dict[str, np.ndarray],
 class _TesterBase:
     """Stage-I nets on the device `cfg.platform` names ('' = the card), and
     the sampling nets its `SUBTREES` name: the pose AE (`PoseAE`) and the
-    Gaussian mappers (`PoseGaussian`, `Gaussian_FC_Fg`, `Gaussian_FC_Bg`).
+    Gaussian mappers (`PoseGaussian`, `Gaussian_FC_Fg`, `Gaussian_FC_Bg`,
+    and DeepFashion's `Gaussian_FC`).
     A sampling net missing from the weights is fresh from one CPU
     torch.Generator seeded with `cfg.random_seed`, in that order, so the
     card and the CPU get the same numbers."""
 
     SUBTREES = STAGE1_SUBTREES
-    MAPPERS = ("PoseGaussian", "Gaussian_FC_Fg", "Gaussian_FC_Bg")
+    MARKET_MAPPERS = ("PoseGaussian", "Gaussian_FC_Fg", "Gaussian_FC_Bg")
+    MAPPERS = MARKET_MAPPERS + ("Gaussian_FC",)
 
     def __init__(self, cfg: Config, params: Optional[Mapping] = None):
         self.cfg = cfg
@@ -140,14 +147,16 @@ class _TesterBase:
                   "flags for real inference)", flush=True)
         self.stage1 = Stage1App(cfg, self.device, state=params,
                                 disc=bool(missing)
-                                or "Discriminator" in params)
+                                or "Discriminator" in params,
+                                fg_bg=cfg.img_H < 256)
         self.fg_dim = cfg.roi_part_num * cfg.roi_z_num
         gen = torch.Generator().manual_seed(cfg.random_seed)
         if "PoseAE" in self.SUBTREES:
             self.pose_ae = Stage1PoseApp(cfg, self.device, params, gen)
         widths = {"PoseGaussian": (POSE_Z, 512),            # trainer.py:754-758
                   "Gaussian_FC_Fg": (self.fg_dim, 512),
-                  "Gaussian_FC_Bg": (cfg.roi_z_num * 4, 256)}
+                  "Gaussian_FC_Bg": (cfg.roi_z_num * 4, 256),
+                  "Gaussian_FC": (self.fg_dim, 512)}
         self.mappers = {}
         for name in self.MAPPERS:
             if name in self.SUBTREES:
@@ -203,17 +212,17 @@ class _TesterBase:
         fallback set under --int8_fallback_mode=legacy, the per-layer
         graph; else the bfloat16 raw-param forward; else the module."""
         cfg = self.cfg
-        gen = self.stage1.generator
+        gen, repeat = self.stage1.generator, self.stage1.gen_repeat
         if self.quant_gen is not None:
             _, gen_fb = _parse_int8_fallback(cfg)
             g_raw, _ = quant_mod.uae_forward(
-                gen, embs, pose_maps, cfg.repeat_num, cfg.conv_hidden_num,
+                gen, embs, pose_maps, repeat, cfg.conv_hidden_num,
                 quant=self.quant_gen, chained=not gen_fb
                 or cfg.int8_fallback_mode == "island")
             return g_raw
         if self.stage1.dtype == torch.bfloat16:
             g_raw, _ = quant_mod.uae_forward_bf16(
-                gen, embs, pose_maps, cfg.repeat_num, cfg.conv_hidden_num)
+                gen, embs, pose_maps, repeat, cfg.conv_hidden_num)
             return g_raw
         return self.stage1._generate(embs, pose_maps)
 
@@ -221,7 +230,10 @@ class _TesterBase:
     def _inference_params(self, first_batch: Mapping[str, torch.Tensor],
                           calib_noise: Optional[Mapping] = None) -> None:
         """With --inference_dtype=int8 (testers.py:179-257): calibrate the
-        int8 ROI encoder and then the int8 generator on the first batch
+        int8 ROI encoder (the FG/BG one only: at 256 the single-branch
+        encoder stays in the compute dtype, and encoder fallback names
+        raise ValueError, as in JAX) and then the int8 generator at its
+        own depth on the first batch
         (device tensors), the generator also on mapper-sampled embeddings
         where this tester samples them (`_sampled_calib_embs`, from
         `calib_noise`, else `draw_noise` of a CPU generator seeded with
@@ -238,14 +250,24 @@ class _TesterBase:
                              f"{cfg.int8_fallback_mode!r}")
         bbox, vis = select_parts(first_batch["part_bbox"],
                                  first_batch["part_vis"], cfg.roi_part_num)
-        with full_float32():
-            qe = quant_mod.QuantizedEncoder(
-                self.stage1.encoder, cfg.repeat_num, cfg.conv_hidden_num,
-                part_num=cfg.roi_part_num, bf16_layers=enc_fallback,
-                calib_granularity=calib.get("calib_granularity", "tensor"))
-            qe.calibrate([(first_batch["x"], first_batch["mask_r6"], bbox,
-                           vis)])
-        self.quant_enc = qe.quant
+        if self.stage1.fg_bg:
+            with full_float32():
+                qe = quant_mod.QuantizedEncoder(
+                    self.stage1.encoder, cfg.repeat_num, cfg.conv_hidden_num,
+                    part_num=cfg.roi_part_num, bf16_layers=enc_fallback,
+                    calib_granularity=calib.get("calib_granularity",
+                                                "tensor"))
+                qe.calibrate([(first_batch["x"], first_batch["mask_r6"],
+                               bbox, vis)])
+            self.quant_enc = qe.quant
+        elif enc_fallback:
+            # testers.py:204-212: no int8 encoder exists on this path
+            raise ValueError(
+                f"--int8_fallback_layers names {sorted(enc_fallback)} "
+                "target the int8 encoder, but this tester "
+                f"({type(self).__name__}, img_H={cfg.img_H}, "
+                f"fg_bg={self.stage1.fg_bg}) runs its encoder in "
+                f"{cfg.compute_dtype} already; drop the stem/fg/bg names")
         embs = self._encode_app(first_batch)
         pose = pose_maps_from_batch(first_batch, cfg)
         b = first_batch["x"].shape[0]
@@ -259,8 +281,8 @@ class _TesterBase:
             calib_pose.append(pose)
         with full_float32():
             qg = quant_mod.QuantizedGenerator(
-                self.stage1.generator, cfg.repeat_num, cfg.conv_hidden_num,
-                bf16_layers=gen_fallback, **calib)
+                self.stage1.generator, self.stage1.gen_repeat,
+                cfg.conv_hidden_num, bf16_layers=gen_fallback, **calib)
             qg.calibrate(calib_embs, calib_pose)
         self.quant_gen = qg.quant
         print(f"[*] {type(self).__name__}: int8 PTQ inference "
@@ -269,7 +291,8 @@ class _TesterBase:
             g_q = self._generate(embs, pose).cpu().numpy()
             with full_float32():
                 g_f = quant_mod.uae_forward(
-                    self.stage1.generator, embs, pose, cfg.repeat_num,
+                    self.stage1.generator, embs, pose,
+                    self.stage1.gen_repeat,
                     cfg.conv_hidden_num)[0].cpu().numpy()
             to255 = lambda a: np.clip((a + 1.0) * 127.5, 0, 255)  # noqa: E731
             self.int8_fidelity = float(ssim_images(to255(g_q),
@@ -338,7 +361,7 @@ class FullSamplingTester(_TesterBase):
     """Model 11 (tester.py:256-416): sample FG/BG appearance (+ pose),
     generate, write PNG trees + discriminator scores."""
 
-    SUBTREES = STAGE1_SUBTREES + _TesterBase.MAPPERS + ("PoseAE",)
+    SUBTREES = STAGE1_SUBTREES + _TesterBase.MARKET_MAPPERS + ("PoseAE",)
     DEFAULT_BATCHES = 751  # tester.py:311
 
     def _sampled_calib_embs(self, noise):
@@ -427,18 +450,29 @@ class FullSamplingTester(_TesterBase):
 
 
 class FactorSamplingTester(_TesterBase):
-    """Model 13 (tester.py:419-613), Market: independently toggle
+    """Models 13 and 1002 (tester.py:419-613): independently toggle
     sample_fg / sample_bg / sample_pose; a factor not sampled is sample 0's
-    across the batch. Model 1002 (DeepFashion's single mapper) is the 256
-    family, not ported yet (ROADMAP §1, "The 256 family")."""
+    across the batch. At 256 (model 1002) one mapper, `Gaussian_FC`,
+    samples the whole appearance code under `sample_fg` or `sample_app`
+    (testers.py:466-472; `sample_bg` has nothing to sample there)."""
 
     SUBTREES = FullSamplingTester.SUBTREES
+    SUBTREES_256 = STAGE1_SUBTREES + ("PoseGaussian", "Gaussian_FC",
+                                      "PoseAE")
     DEFAULT_BATCHES = 400  # tester.py:475
+
+    def __init__(self, cfg: Config, params: Optional[Mapping] = None):
+        self.is_256 = cfg.img_H >= 256
+        if self.is_256:  # testers.py:436-441
+            self.SUBTREES = self.SUBTREES_256
+        super().__init__(cfg, params)
 
     def _sampled_calib_embs(self, noise):
         cfg = self.cfg
         if not (cfg.sample_fg or cfg.sample_bg or cfg.sample_app):
             return None
+        if self.is_256:
+            return self._map("Gaussian_FC", noise["fg"])
         return self._market_mapper_embs(noise)
 
     @torch.inference_mode()
@@ -449,13 +483,18 @@ class FactorSamplingTester(_TesterBase):
         rendered in normalized mode (testers.py:494-499), as in JAX."""
         cfg = self.cfg
         b = batch["x"].shape[0]
-        if not (cfg.sample_fg and cfg.sample_bg):
-            embs = self._encode_app(batch)
-        fg = (self._map("Gaussian_FC_Fg", noise["fg"]) if cfg.sample_fg
-              else embs[:1, :self.fg_dim].expand(b, -1))  # tester.py:541-543
-        bg = (self._map("Gaussian_FC_Bg", noise["bg"]) if cfg.sample_bg
-              else embs[:1, self.fg_dim:].expand(b, -1))
-        embs = torch.cat([fg, bg], -1)
+        if self.is_256:
+            embs = (self._map("Gaussian_FC", noise["fg"])
+                    if cfg.sample_fg or cfg.sample_app
+                    else self._encode_app(batch)[:1].expand(b, -1))
+        else:
+            if not (cfg.sample_fg and cfg.sample_bg):
+                embs = self._encode_app(batch)
+            fg = (self._map("Gaussian_FC_Fg", noise["fg"]) if cfg.sample_fg
+                  else embs[:1, :self.fg_dim].expand(b, -1))  # :541-543
+            bg = (self._map("Gaussian_FC_Bg", noise["bg"]) if cfg.sample_bg
+                  else embs[:1, self.fg_dim:].expand(b, -1))
+            embs = torch.cat([fg, bg], -1)
         if cfg.sample_pose:
             pose_maps, _ = self._pose_maps(batch, noise["pose"],
                                            "reconstructed")
@@ -495,9 +534,10 @@ class FactorSamplingTester(_TesterBase):
 
 
 class ConditionalTransferTester(_TesterBase):
-    """Model 12 (tester.py:616-767): PG2-style pose transfer — source
-    appearance + target pose -> image; writes the directory tree score.py
-    consumes (x, x_target, G, pose, pose_target, mask, mask_target)."""
+    """Models 12 and 1001 (tester.py:616-767): PG2-style pose transfer —
+    source appearance + target pose -> image; writes the directory tree
+    score.py consumes (x, x_target, G, pose, pose_target, mask,
+    mask_target)."""
 
     DEFAULT_BATCHES = 600  # tester.py:650
 
@@ -556,7 +596,8 @@ class InterpolationTester(_TesterBase):
     @torch.inference_mode()
     def _embed(self, batch: Mapping[str, torch.Tensor]
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (appearance codes [B, 352], pose codes [B, POSE_Z])."""
+        """-> (appearance codes [B, 352] (224 at 256), pose codes
+        [B, POSE_Z])."""
         return (self._encode_app(batch),
                 self._pose_z(batch, None, "reconstructed"))
 

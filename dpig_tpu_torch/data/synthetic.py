@@ -81,16 +81,25 @@ def write_synthetic_tfrecords(dataset_dir: str, split: str, n_pairs: int,
                               img_h: int, img_w: int, seed: int = 0,
                               n_shards: int = 1, name: str = "Market1501"
                               ) -> List[str]:
-    """A Market-format pair dataset from `synthetic_batch` fixtures, for
-    smoke runs and measurements without the published bundles: shards
+    """A pair dataset from `synthetic_batch` fixtures, for smoke runs and
+    measurements without the published bundles: shards
     `<name>_<split>_XXXXX.tfrecord` of `build_pair_example` records (the
     images JPEG-encoded by PIL, the visible keypoints as OpenPose peaks,
-    the synthetic masks as 'pose_mask_r4' / 'pose_mask_r6', the part
-    bboxes and visibility), records dealt round-robin over the shards,
-    and the py2 pickle `pn_pairs_num_<split>.p` with the pair count.
-    Returns the shard paths."""
+    the synthetic masks, the part bboxes and visibility), records dealt
+    round-robin over the shards, and the py2 pickle
+    `pn_pairs_num_<split>.p` with the pair count. Returns the shard paths.
+
+    The masks take the keys of the flavour the loader reads for `name`
+    (`data/loader.py:MARKET_KEYS` / `DF_KEYS`): a Market name ("market" in
+    it) stores 'pose_mask_r6' / 'pose_mask_r4', any other name the
+    DeepFashion pair 'pose_mask_r4' / 'pose_mask_r8', each holding the
+    fixture's mask of the batch slot that key fills ('mask_r6' /
+    'mask_r4')."""
     from .example import build_pair_example
+    from .loader import DF_KEYS, MARKET_KEYS
     from .tfrecord import TFRecordWriter
+
+    keys = MARKET_KEYS if "market" in name.lower() else DF_KEYS
 
     rng = np.random.default_rng(seed)
     os.makedirs(dataset_dir, exist_ok=True)
@@ -111,8 +120,8 @@ def write_synthetic_tfrecords(dataset_dir: str, split: str, n_pairs: int,
                                    else [] for k, (r, c, v) in
                                    enumerate(b[f"pose_rcv{tag}"][0])]
                 kw[f"masks{s}"] = {
-                    "pose_mask_r4": b[f"mask_r4{tag}"][0, ..., 0],
-                    "pose_mask_r6": b[f"mask_r6{tag}"][0, ..., 0]}
+                    keys["mask_a"]: b[f"mask_r6{tag}"][0, ..., 0],
+                    keys["mask_b"]: b[f"mask_r4{tag}"][0, ..., 0]}
                 kw[f"part_bbox{s}"] = b[f"part_bbox{tag}"][0]
                 kw[f"part_vis{s}"] = b[f"part_vis{tag}"][0]
             writers[i % n_shards].write(build_pair_example(

@@ -17,8 +17,26 @@
         --pretrained_poseSample_path=<s4> --synthetic_data=true \
         --test_batch_num=4 --model_dir=<dir>
 
+The DeepFashion 256x256 family runs the same chain as models 101 -> 102
+-> 103 -> 104 (the single-branch ROI encoder, one 7x32 appearance mapper)
+and tests as models 1001 (transfer) and 1002 (factor sampling):
+
+    D="--img_H=256 --img_W=256 --batch_size=6 --synthetic_data=true"
+    python -m dpig_tpu_torch.main --model=101 $D --max_step=1000 \
+        --model_dir=<d1>
+    python -m dpig_tpu_torch.main --model=102 $D --model_dir=<d2>
+    python -m dpig_tpu_torch.main --model=103 $D --pretrained_path=<d1> \
+        --model_dir=<d3>
+    python -m dpig_tpu_torch.main --model=104 $D --pretrained_path=<d1> \
+        --pretrained_poseAE_path=<d2> --model_dir=<d4>
+    python -m dpig_tpu_torch.main --model=1002 --is_train=false \
+        --img_H=256 --img_W=256 --synthetic_data=true --sample_fg=true \
+        --pretrained_path=<d1> --pretrained_poseAE_path=<d2> \
+        --pretrained_appSample_path=<d3> --pretrained_poseSample_path=<d4> \
+        --test_batch_num=4 --model_dir=<dir>
+
 On real data, drop --synthetic_data and name the directory of a Market
-pair dataset (`<data_dir>/<dataset>/*_train_*.tfrecord`,
+(or DeepFashion: a dataset name without "market") pair dataset (`<data_dir>/<dataset>/*_train_*.tfrecord`,
 `*_test_*.tfrecord`, `pn_pairs_num_<split>.p`, as the JAX package reads):
 
     python -m dpig_tpu_torch.main --model=1 --data_dir=<dir> \
@@ -37,11 +55,11 @@ Runs the Market training chain, Stage I (model 1), the pose AE (2), the
 appearance samplers (3) and the pose sampler (4), each stage's checkpoints
 feeding the `--pretrained_*` flags of the next and of the testers, then
 model-11 sampling, model-12 pose transfer, model-13 factor sampling and
-the `--interpolate_*` factor interpolation, on the card (`--platform=cpu`
-for the CPU). As in the JAX package, `--model` alone picks training (1-4,
-101-104) or testing (11, 12, 13, 1001, 1002). Every model and option whose
-path is not ported yet raises NotImplementedError naming its ROADMAP
-item.
+the `--interpolate_*` factor interpolation, and the DeepFashion twins
+(101-104, 1001, 1002), on the card (`--platform=cpu` for the CPU). As in
+the JAX package, `--model` alone picks training (1-4, 101-104) or testing
+(11, 12, 13, 1001, 1002). Every option whose path is not ported yet
+raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -73,12 +91,10 @@ def make_loader(cfg: Config):
 
 
 def train_model(cfg: Config):
-    """Models 1-4 through the Trainer (main.py:43-115); returns the final
-    GanState."""
-    if cfg.model not in (1, 2, 3, 4):
-        raise NotImplementedError(
-            f"--model={cfg.model}: the 256x256 family is not ported to "
-            'dpig_tpu_torch yet (ROADMAP §1, "The 256 family")')
+    """Models 1-4 and 101-104 through the Trainer (main.py:43-115);
+    returns the final GanState."""
+    if cfg.model not in TRAIN_MODELS:
+        raise ValueError(f"unknown training model {cfg.model}")
     with contextlib.closing(make_loader(cfg)) as loader:
         return _train(cfg, loader)
 
@@ -88,9 +104,9 @@ def _train(cfg: Config, loader):
     from .train.harness import Trainer
 
     device = select_device(cfg.platform)
-    if cfg.model == 1:
+    if cfg.model in (1, 101):
         from .apps.stage1_app import Stage1App
-        app = Stage1App(cfg, device)
+        app = Stage1App(cfg, device, fg_bg=cfg.model == 1)
         trainer = Trainer(cfg, app, loader)
 
         def preview(state, batch, step):
@@ -102,12 +118,12 @@ def _train(cfg: Config, loader):
             trainer.preview_with_ssim(imgs.cpu().numpy(), batch["x"], step)
 
         return trainer.train(preview_fn=preview)
-    if cfg.model == 2:
+    if cfg.model in (2, 102):
         from .apps.stage1_pose import Stage1PoseApp
         return Trainer(cfg, Stage1PoseApp(cfg, device), loader).train()
 
     frozen = {}
-    if cfg.model == 4 and cfg.pretrained_poseAE_path:
+    if cfg.model in (4, 104) and cfg.pretrained_poseAE_path:
         frozen.update(ckpt.restore_subtrees(cfg.pretrained_poseAE_path,
                                             ["PoseAE"]))
     if cfg.pretrained_path:
@@ -116,6 +132,9 @@ def _train(cfg: Config, loader):
     if cfg.model == 3:
         from .apps.stage2_app import Stage2AppApp
         app = Stage2AppApp(cfg, device, frozen)
+    elif cfg.model == 103:  # DF: one 7*32-d mapper (trainer_256.py:266-403)
+        from .apps.stage2_app_single import Stage2AppSingleApp
+        app = Stage2AppSingleApp(cfg, device, frozen)
     else:
         from .apps.stage2_pose import Stage2PoseApp
         app = Stage2PoseApp(cfg, device, frozen)
@@ -139,11 +158,7 @@ def test_model(cfg: Config) -> str:
         raise NotImplementedError(
             f"--{unported[0]} is not ported to dpig_tpu_torch yet (ROADMAP "
             '§1, "The remaining CLI modes and options")')
-    if cfg.model in (1001, 1002):
-        raise NotImplementedError(
-            f"--model={cfg.model}: the 256x256 family is not ported to "
-            'dpig_tpu_torch yet (ROADMAP §1, "The 256 family")')
-    if cfg.model not in (11, 12, 13):
+    if cfg.model not in (11, 12, 13, 1001, 1002):
         raise ValueError(f"unknown test model {cfg.model}")
     with contextlib.closing(make_loader(cfg)) as loader:
         return _test(cfg, loader)
@@ -162,9 +177,9 @@ def _test(cfg: Config, loader) -> str:
             "reconstructed" if cfg.sample_pose else "real")
         return testers.FullSamplingTester(cfg).run(loader,
                                                    pose_source=pose_source)
-    if cfg.model == 12:
+    if cfg.model in (12, 1001):
         return testers.ConditionalTransferTester(cfg).run(loader)
-    return testers.FactorSamplingTester(cfg).run(loader)
+    return testers.FactorSamplingTester(cfg).run(loader)  # 13, 1002
 
 
 def main(argv=None) -> None:

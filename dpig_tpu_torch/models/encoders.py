@@ -1,5 +1,7 @@
-"""FG/BG appearance encoder (port of `dpig_tpu/models/encoders.py:27-142`,
-reference models.py:390-471), the Market Stage-I encoder.
+"""Appearance encoders (port of `dpig_tpu/models/encoders.py:27-142`):
+the FG/BG two-branch ROI encoder of the Market Stage I (reference
+models.py:390-471) and the single-branch ROI encoder of the DeepFashion
+256x256 family (models.py:275-325).
 
 The P per-part crops are folded into the batch axis ([P*B, C, roi, roi])
 so the weight-shared ROI tower runs as one conv stack. `dtype` is the
@@ -70,12 +72,39 @@ def _apply_vis(fea: torch.Tensor, part_vis: torch.Tensor,
     """Visibility zeroing (encoders.py:62-80; models.py:433-442).
     fea [P*B, z] part-major; part_vis [B, P]. Returns [B, P*z]. Part
     dropout (keep_part_prob < 1) is not ported: Stage I passes no rng, so
-    model 1 never draws it."""
+    models 1 and 101 never draw it."""
     pb, z = fea.shape
     b = pb // part_num
     fea = fea.reshape(part_num, b, z)
     fea = fea * part_vis.to(fea.dtype).t()[:, :, None]
     return fea.transpose(0, 1).reshape(b, part_num * z)
+
+
+class RoiEncoder(nn.Module):
+    """Single-branch 7-part ROI encoder (encoders.py:83-104): the stem,
+    the P crops of the unmasked feature map, the shared tower, visibility
+    zeroing. Output: [B, part_num*z] (224 dims for z=32, P=7). Its
+    submodules carry flax's auto-names (`_Stem_0`, `_RoiTower_0`)."""
+
+    def __init__(self, part_num: int = 7, z_num: int = 32,
+                 repeat_num: int = 5, hidden_num: int = 128,
+                 roi_size: int = 48, activation: Callable = F.relu,
+                 in_ch: int = 3, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.part_num = part_num
+        self.roi_size = roi_size
+        self._Stem_0 = _Stem(in_ch, hidden_num, activation, dtype)
+        self._RoiTower_0 = _RoiTower(z_num, repeat_num, hidden_num, roi_size,
+                                     activation, dtype)
+
+    def forward(self, x, part_bbox, part_vis):
+        """x [B,H,W,3] (NHWC), part_bbox [B,P,4] int, part_vis [B,P] ->
+        [B, P*z]."""
+        x = self._Stem_0(x.permute(0, 3, 1, 2))
+        rois = crop_body_rois(x.permute(0, 2, 3, 1), part_bbox,
+                              self.roi_size)                  # [P*B,r,r,C]
+        fea = self._RoiTower_0(rois.permute(0, 3, 1, 2))
+        return _apply_vis(fea, part_vis, self.part_num)
 
 
 class RoiEncoderFgBg(nn.Module):

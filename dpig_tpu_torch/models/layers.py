@@ -138,7 +138,8 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = True,
                 update_stats: bool = False) -> torch.Tensor:
-        x = x.to(torch.float32)
+        # statistics in float32 (float64 for a float64 check run)
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             if update_stats:
                 self._update_stats(x)

@@ -36,6 +36,17 @@ SMALL = dict(img_H=32, img_W=16, batch_size=4, conv_hidden_num=16, z_num=16)
 CPU = torch.device("cpu")
 
 
+def _as(module, dtype):
+    """`module` with its parameters and its layers' compute dtype
+    (`models/layers.py`: `Conv`, `Dense`, `BatchNorm`, the generator's
+    stem) in `dtype`."""
+    module.to(dtype)
+    for m in module.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = dtype
+    return module
+
+
 def encoder_grads_small():
     import jax
     from dpig_tpu.apps.stage1_app import Stage1App as JaxStage1App
@@ -65,7 +76,7 @@ def encoder_grads_small():
                     state=params_from_flax(tree))
     for label, dtype in (("port float32", torch.float32),
                          ("port float64", torch.float64)):
-        enc = app.encoder.to(dtype).requires_grad_(True)
+        enc = _as(app.encoder, dtype).requires_grad_(True)
         out = enc(*(torch.from_numpy(a).to(dtype) for a in (b["x"],
                                                              b["mask_r6"])),
                   torch.from_numpy(bbox), torch.from_numpy(vis).to(dtype))
@@ -89,7 +100,7 @@ def g_grads_full(dtype, term):
     app = Stage1App(cfg, CPU)
     nets = {"Encoder": app.encoder, "ID_AE": app.generator}
     for m in (app.encoder, app.generator, app.disc):
-        m.to(dtype).requires_grad_(True)
+        _as(m, dtype).requires_grad_(True)
     batch = batch_to_device(next(SyntheticLoader(2, 128, 64, seed=99)), CPU)
     x, pose, mask, bbox, vis = app.step_inputs(batch)
     x, pose, mask, vis = (t.to(dtype) for t in (x, pose, mask, vis))

@@ -17,7 +17,10 @@ the mma_sync kernel (`csrc/s8_conv.cu`) over Ci 64-768, ragged M and N,
 stride 2 on odd sizes, ROI crops, split-K on and off, on a side stream and
 in a replayed CUDA graph, with its launches counted per route; refused
 inputs; the int8 testers (models 12 and 11) and the bfloat16 tester on the
-card against the CPU.
+card against the CPU. The DeepFashion family: a model-101 step (the
+single-branch encoder at the small config) and a model-103 step on the
+card against the CPU, and models 1001 and 1002 at 256x256 (narrow) in
+float32 and int8.
 
 Marked `cuda` and skipped without a card. On a machine with one (JAX is not
 needed there, hence no conftest):
@@ -191,21 +194,24 @@ STEP_TOL = {"g_step_losses": 1e-5, "d_loss": 1e-5, "Encoder": 1.5e-4,
             "ID_AE": 3e-5, "Discriminator": 3e-5, "d_stats": 1e-5}
 
 
-def _cpu_and_card_steps(card, tmp_path, step_fn=None, fast=False):
+def _cpu_and_card_steps(card, tmp_path, step_fn=None, fast=False,
+                        fg_bg=True):
     """One small-config train step of the same weights on the CPU and, with
     PyTorch's TF32 flags on, on the card -> (errors, CPU record, card
-    record); the card's pose-kernel launches are checked to be one."""
+    record); the card's pose-kernel launches are checked to be one.
+    `fg_bg=False`: model 101's single-branch encoder."""
     from dpig_tpu_torch.apps.stage1_app import Stage1App
     batch = next(SyntheticLoader(4, 32, 16, seed=3))
     cfgs = [Config(platform=p, model_dir=str(tmp_path), fast_gan_step=fast,
                    **SMALL) for p in ("", "cpu")]
-    cpu = recorded_train_step(Stage1App(cfgs[1], torch.device("cpu")), batch)
+    cpu = recorded_train_step(Stage1App(cfgs[1], torch.device("cpu"),
+                                        fg_bg=fg_bg), batch)
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     cudnn.allow_tf32 = matmul.allow_tf32 = True
     try:
         before = pose_raster.launches
-        gpu = recorded_train_step(Stage1App(cfgs[0], card), batch, step_fn,
-                                  g_updated=cpu.g_updated)
+        gpu = recorded_train_step(Stage1App(cfgs[0], card, fg_bg=fg_bg),
+                                  batch, step_fn, g_updated=cpu.g_updated)
         assert pose_raster.launches == before + 1
     finally:
         cudnn.allow_tf32 = matmul.allow_tf32 = False
@@ -222,6 +228,14 @@ def test_train_step_on_the_card_matches_the_cpu(card, tmp_path, fast):
     print(f"card vs CPU, fast_gan_step={fast}: {errs}")
     assert all(errs[k] <= t for k, t in STEP_TOL.items()), errs
     assert gpu.state.step == cpu.state.step == 1
+
+
+def test_model101_train_step_on_the_card_matches_the_cpu(card, tmp_path):
+    """Model 101 at the small config (the single-branch encoder at Market
+    depths): card vs CPU within STEP_TOL."""
+    errs, cpu, gpu = _cpu_and_card_steps(card, tmp_path, fg_bg=False)
+    print(f"model 101, card vs CPU: {errs}")
+    assert all(errs[k] <= t for k, t in STEP_TOL.items()), errs
 
 
 def test_a_tf32_backward_exceeds_the_step_tolerance(card, tmp_path):
@@ -466,15 +480,17 @@ def test_kernel_on_decoded_rcv_matches_plain(card, tmp_path):
 STAGE2_STEP_TOL = 1e-5
 
 
-@pytest.mark.parametrize("model", [3, 4])
+@pytest.mark.parametrize("model", [3, 4, 103])
 def test_stage2_step_on_the_card_matches_the_cpu(card, tf32_on, tmp_path,
                                                  model):
     """One `fresh` step of the same weights, batches and noise: the ROI
-    encoder runs 6 times on the card for model 3 (0 for model 4), the
-    pose kernel never, every critic parameter ends within +-0.01."""
+    encoder runs 6 times on the card for models 3 and 103 (0 for model
+    4), the pose kernel never, every critic parameter ends within
+    +-0.01."""
     from dpig_tpu_torch.apps.stage2_app import Stage2AppApp
+    from dpig_tpu_torch.apps.stage2_app_single import Stage2AppSingleApp
     from dpig_tpu_torch.apps.stage2_pose import Stage2PoseApp
-    cls = Stage2AppApp if model == 3 else Stage2PoseApp
+    cls = {3: Stage2AppApp, 4: Stage2PoseApp, 103: Stage2AppSingleApp}[model]
     loader = SyntheticLoader(4, 32, 16, seed=BATCH_SEED)
     host = tuple(next(loader) for _ in range(6))
     cpu_app = cls(Config(platform="cpu", model_dir=str(tmp_path), **SMALL),
@@ -491,7 +507,7 @@ def test_stage2_step_on_the_card_matches_the_cpu(card, tf32_on, tmp_path,
                               g_updated=ref.g_updated,
                               d_clipped=ref.d_clipped)
     assert pose_raster.launches == before
-    assert len(calls) == (6 if model == 3 else 0)
+    assert len(calls) == (0 if model == 4 else 6)
     errs = step_errors(ref, got)
     print(f"model {model}, card vs CPU: {errs}")
     assert all(v <= STAGE2_STEP_TOL for v in errs.values()), errs
@@ -781,5 +797,58 @@ def test_reduced_precision_transfer_on_the_card_matches_the_cpu(card, kw,
         params=cpu.cpu_state())
     flt = f32.transfer_step(batch_to_device(batch, f32.device))[0]
     gap = (out["cpu"] - flt).abs()
+    assert float(diff.max()) <= float(gap.max())
+    assert float(diff.mean()) <= float(gap.mean())
+
+
+DF_NARROW = dict(img_H=256, img_W=256, batch_size=2, conv_hidden_num=4,
+                 z_num=4)
+
+
+@pytest.mark.parametrize("model,kw", [
+    (1001, {}), (1002, {"sample_fg": True}),
+    (1001, {"inference_dtype": "int8"}),
+    (1002, {"sample_fg": True, "inference_dtype": "int8"})],
+    ids=["1001", "1002", "1001-int8", "1002-int8"])
+def test_df256_testers_on_the_card_match_the_cpu(card, tmp_path, model, kw):
+    """Models 1001 and 1002 at 256x256, narrow (hidden 4): the same
+    weights, first batch and noise on the card and on the CPU. Float32:
+    images within 2e-2 on [0,255] (the 1e-4 g_raw bound), scores 1e-4,
+    pose maps bit-equal. int8 (each device calibrating its own generator
+    table; no int8 encoder at 256): within the CPU's own int8-vs-float32
+    gap in max and mean |diff|, the s8 conv launched."""
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    cls = ConditionalTransferTester if model == 1001 else FactorSamplingTester
+    cfg = dict(platform="cpu", model_dir=str(tmp_path), **DF_NARROW, **kw)
+    cpu = cls(Config(**cfg))
+    dev = cls(Config(**{**cfg, "platform": ""}), params=cpu.cpu_state())
+    batch = next(SyntheticLoader(2, 256, 256, seed=1))
+    noise = cpu.draw_noise(torch.Generator().manual_seed(1), 2)
+
+    def step(t, tb):
+        if model == 1001:
+            return t.transfer_step(tb)
+        return t.sample_step(tb, {k: v.to(t.device) for k, v in
+                                  noise.items()})
+
+    out = {}
+    for name, t in (("cpu", cpu), ("card", dev)):
+        tb = batch_to_device(batch, t.device)
+        t._inference_params(tb)
+        assert t.quant_enc is None
+        before = sc.launches
+        out[name] = [o.cpu() for o in step(t, tb)]
+        if name == "card" and kw.get("inference_dtype") == "int8":
+            assert sc.launches > before
+    assert torch.equal(out["card"][1], out["cpu"][1])
+    diff = (out["card"][0] - out["cpu"][0]).abs()
+    if "inference_dtype" not in kw:
+        assert float(diff.max()) <= 2e-2
+        assert float((out["card"][2] - out["cpu"][2]).abs().max()) <= 1e-4
+        return
+    f32 = cls(Config(**{k: v for k, v in cfg.items()
+                        if k != "inference_dtype"}), params=cpu.cpu_state())
+    flt = step(f32, batch_to_device(batch, f32.device))[0]
+    gap = (out["cpu"][0] - flt).abs()
     assert float(diff.max()) <= float(gap.max())
     assert float(diff.mean()) <= float(gap.mean())

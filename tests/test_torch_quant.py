@@ -341,9 +341,9 @@ def _cfg(tmp_path, **kw):
 
 def test_int8_error_paths_match_jax(jparams, port, monkeypatch, tmp_path):
     """Unknown fallback names and an unknown --int8_calibration raise
-    ValueError on both sides. JAX's third refusal, encoder fallback names
-    on a path with no int8 encoder, is its 256 family (the single-branch
-    encoder): the port refuses that family when the tester is built."""
+    ValueError on both sides, and so does JAX's third refusal: encoder
+    fallback names on a path with no int8 encoder, the 256 family's
+    single-branch encoder (testers.py:204-212)."""
     batch = port[1]
     state = params_from_flax(jparams, FULL.SUBTREES)
     params = {k: state[k] for k in
@@ -361,10 +361,20 @@ def test_int8_error_paths_match_jax(jparams, port, monkeypatch, tmp_path):
             _cfg(tmp_path, inference_dtype="int8", **kw), params=params)
         with pytest.raises(ValueError, match=match):
             pt._inference_params(tb)
-    with pytest.raises(NotImplementedError, match='"The 256 family"'):
-        testers.ConditionalTransferTester(Config(
-            platform="cpu", img_H=256, img_W=256, inference_dtype="int8",
-            int8_fallback_layers="fg/Conv_0", model_dir=str(tmp_path)))
+    narrow = dict(img_H=256, img_W=256, batch_size=2, conv_hidden_num=4,
+                  z_num=4, inference_dtype="int8",
+                  int8_fallback_layers="fg/Conv_0")
+    batch256 = next(JaxLoader(2, 256, 256, seed=3))
+    monkeypatch.setattr(jtesters._TesterBase, "_restore_params",
+                        lambda self: jparams)
+    jt = jtesters.ConditionalTransferTester(JaxConfig(**narrow))
+    match = "target the int8 encoder"
+    with pytest.raises(ValueError, match=match):
+        jt._inference_params(batch256)
+    pt = testers.ConditionalTransferTester(Config(
+        platform="cpu", model_dir=str(tmp_path), **narrow))
+    with pytest.raises(ValueError, match=match):
+        pt._inference_params(batch_to_device(batch256, torch.device("cpu")))
 
 
 def test_cli_runs_int8_and_bf16_testers(tmp_path, capsys):

@@ -476,18 +476,14 @@ def test_cli_interpolation_for_any_test_model(tmp_path):
 # The refusals name their ROADMAP item by title; the ids are the ones these
 # cases had when they named it by number.
 @pytest.mark.parametrize("flags,match", [
-    (["--model=1002"], '"The 256 family"'),
-    (["--model=1001"], '"The 256 family"'),
-    (["--model=1002", "--inference_dtype=int8"], '"The 256 family"'),
     (["--model=13", "--pretrained_poseAE_path={orbax}"],
      "orbax checkpoint.*scripts/orbax_to_torch.py"),
     (["--model=11", "--test_one_by_one=true"],
      'test_one_by_one.*"The remaining CLI modes and options"'),
     (["--model=13", "--inverse_fg=true"],
      'inverse_fg.*"The remaining CLI modes and options"')],
-    ids=["flags0-queue item 4", "flags1-queue item 4",
-         "flags2-queue item 6", "flags3-queue item 5",
-         "flags4-test_one_by_one", "flags5-inverse_fg"])
+    ids=["flags3-queue item 5", "flags4-test_one_by_one",
+         "flags5-inverse_fg"])
 def test_cli_unported_options_raise(tmp_path, flags, match):
     """`{orbax}`: a JAX orbax checkpoint (its metadata file), which the
     port reads only once `scripts/orbax_to_torch.py` has imported it."""

@@ -439,16 +439,6 @@ def test_cli_refuses_to_train_without_a_card(tmp_path):
     assert not os.listdir(tmp_path)  # nothing written before the refusal
 
 
-# The refusals name their ROADMAP item by title; the ids are the ones these
-# cases had when they named it by number.
-@pytest.mark.parametrize("model,item", [
-    (m, '"The 256 family"') for m in (102, 103, 104, 101)],
-    ids=["102-queue item 4", "103-item 4", "104-item 4", "101-item 4"])
-def test_unported_training_models_raise(tmp_path, model, item):
-    with pytest.raises(NotImplementedError, match=item):
-        port_main.train_model(_small_cfg(tmp_path, model=model))
-
-
 def test_unported_training_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="remat.*The remaining"):
         Stage1App(_small_cfg(tmp_path, remat=True), CPU).init_state()

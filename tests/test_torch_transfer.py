@@ -143,8 +143,3 @@ def test_unported_options_raise(tmp_path):
     t8 = testers.ConditionalTransferTester(
         small_cfg(tmp_path, inference_dtype="int8"))
     assert t8.quant_enc is None and t8.quant_gen is None
-    from dpig_tpu_torch import main
-    with pytest.raises(NotImplementedError, match="model=1002"):
-        main.test_model(small_cfg(tmp_path, model=1002))
-    with pytest.raises(NotImplementedError, match="model=102"):
-        main.train_model(small_cfg(tmp_path, model=102))
