@@ -163,8 +163,38 @@ Phases, each printing one line; any failure exits non-zero:
               conv on every conv shape of one int8 model-1001 batch, as in
               phase 14 (its plain float64 conv on the whole batch); card vs
               CPU at batch 2: one model-1001 batch (phase 5's tolerance and
-              TF32 control) and one model-101 step (phase 7's). The pose
+              TF32 control) and one model-101 step (phase 7's), the step
+              also read against a float64 step on the card and on the
+              CPU, and with cuDNN's deterministic algorithms. The pose
               kernel at 256x256 for B = 6 and 16 is in phase 3.
+
+17. demo     `--test_one_by_one` through the CLI at full Market width on
+              DEMO_PAIRS pairs of 128x64 JPEGs with OpenPose pickles written
+              from a seed (a name without peaks, an image without a
+              subset): 2 pose launches per written pair, ms per pair; the
+              same demo on the CPU with the same weights: the seven
+              trees' names equal, pose / mask / image PNGs bit-equal, G
+              within one level; one pair's g_raw and D score within
+              PARITY_TOL.
+18. d_arch   model 1 through the CLI with `--D_arch` DCGANRegion, Patch
+              and FCDis, float32 and bf16, D_ARCH_STEPS steps each (ms per
+              step, finite metrics, phase 6's pose launches); one step of
+              each card vs CPU within D_ARCH_PARITY_TOL (phase 7's limits,
+              the Patch D's ill-conditioned gradient excepted), a TF32
+              step past the guard outside them; for Patch, the step
+              against float64 on both sides and without cuDNN.
+19. remat    `--remat` through the CLI for models 1 and 101 (2 steps);
+              one step with and without remat from the same weights for
+              model 1 at batch 16 and 256 and model 101 at 6: ms per step,
+              peak torch.cuda.max_memory_allocated, the G-step losses
+              within REMAT_LOSS_TOL, one pose launch per step; whether
+              batch 256 fits the card without remat is printed.
+20. inversion `--inverse_fg --inverse_bg` through the CLI at batch 16,
+              INVERSION_STEPS Adam steps (no pose launch: the inversion
+              renders no pose map), ms per Adam step on a built tool; card
+              vs CPU from the same weights, batch and z0 within
+              INVERSION_TOL after INVERSION_FEW and INVERSION_STEPS steps,
+              beside a float64 run of the mappers.
 
 The line before the last is {"kernels": [...]}: the pose kernel with its
 launches on each path, and the s8 conv's two routes, each with its
@@ -943,8 +973,48 @@ def _float64(app):
     return app
 
 
+def _float32_gaps(cfgs, batch, fg_bg, ref):
+    """What float32 gives on each side: the CPU's float32 step `ref`
+    against the CPU's float64 step, the card's float32 step against the
+    card's float64 step, and the card's float32 step with cuDNN's
+    deterministic algorithms (`cudnn.deterministic`, no benchmark) against
+    the card's float64 step and against `ref`. Every step's D step starts
+    from `ref`'s updated G."""
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.train.parity import recorded_train_step, step_errors
+
+    def step(platform, device, wide=False):
+        app = Stage1App(cfgs[platform], torch.device(device), fg_bg=fg_bg)
+        return recorded_train_step(_float64(app) if wide else app, batch,
+                                   g_updated=ref.g_updated)
+
+    card64 = step("", "cuda", wide=True)
+    card32 = step("", "cuda")
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark, cudnn.enabled
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        card_det = step("", "cuda")
+        cudnn.enabled = False
+        card_native = step("", "cuda")
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.enabled = saved
+    return {"the CPU's float32 step against its float64 step": step_errors(
+                step("cpu", "cpu", wide=True), ref),
+            "the card's float32 step against the card's float64 step":
+                step_errors(card64, card32),
+            "the card's float32 step, cuDNN deterministic, against the "
+            "card's float64 step": step_errors(card64, card_det),
+            "the card's float32 step, cuDNN deterministic, against the "
+            "CPU's float32 step": step_errors(ref, card_det),
+            "the card's float32 step without cuDNN (PyTorch's own conv "
+            "kernels) against the card's float64 step": step_errors(
+                card64, card_native)}
+
+
 def phase_train_parity(model_dir, size=None, fg_bg=True,
-                       tag="[train parity]", tol=None, df256=False):
+                       tag="[train parity]", tol=None, df256=False,
+                       d_arch=False, gaps=False):
     """One train step, batch 2 at full width, default variant, from the
     same weights on the card and on the CPU, the card's D step from the
     CPU's updated G: float32, with the TF32 flags on, and two controls with
@@ -955,8 +1025,16 @@ def phase_train_parity(model_dir, size=None, fg_bg=True,
 
     `tol` replaces TRAIN_PARITY_TOL. `df256`: the CPU's float32 step is
     also read against the same step in float64 (the yardstick of what
-    float32 can give), and the D-backward TF32 control is shown, not
-    required (see DF_TRAIN_PARITY_TOL)."""
+    float32 can give), and so is the card's, the card's float32 step
+    again with cuDNN's deterministic algorithms, and the D-backward TF32
+    control is shown, not required (see DF_TRAIN_PARITY_TOL). Without
+    `d_arch` (a D other than DCGAN) the L1-term runs and the D-backward
+    control are left out (the L1 term reads the generator's backward,
+    which the D does not change), and the control past the guard must
+    break the check on one of its limits, not on each G net's (such a D
+    moves the generator's TF32 error less). `gaps` prints `_float32_gaps`
+    as `df256` does. A limit on a key the step does not have (`d_stats`
+    of a D without BatchNorm) is not read."""
     from dpig_tpu_torch.apps.stage1_app import Stage1App
     from dpig_tpu_torch.config import Config
     from dpig_tpu_torch.data.synthetic import SyntheticLoader
@@ -970,21 +1048,21 @@ def phase_train_parity(model_dir, size=None, fg_bg=True,
             "control: past the guard, TF32": (True, _train_step_unguarded),
             "control: forwards guarded only, TF32": (
                 True, Stage1App.train_step.__wrapped__)}
-    errs, gaps = {}, {}
-    for term, context in (("G objective", contextlib.nullcontext),
-                          ("L1 term", _l1_term_only)):
+    errs, readings = {}, {}
+    terms = (("G objective", contextlib.nullcontext),
+             ("L1 term", _l1_term_only))[:1 if d_arch else 2]
+    for term, context in terms:
         with context():
             ref = recorded_train_step(
                 Stage1App(cfgs["cpu"], torch.device("cpu"), fg_bg=fg_bg),
                 batch)
-            if df256 and term == "G objective":
-                gaps[term] = step_errors(recorded_train_step(
-                    _float64(Stage1App(cfgs["cpu"], torch.device("cpu"),
-                                       fg_bg=fg_bg)), batch,
-                    g_updated=ref.g_updated), ref)
+            if (df256 or gaps) and term == "G objective":
+                readings.update(_float32_gaps(cfgs, batch, fg_bg, ref))
             for label, (tf32, step_fn) in runs.items():
                 if term == "L1 term" and "past the guard" in label:
                     continue
+                if "forwards guarded" in label and d_arch:
+                    continue  # a run that nothing below reads
                 _set_tf32(tf32)
                 try:
                     got = recorded_train_step(
@@ -995,11 +1073,12 @@ def phase_train_parity(model_dir, size=None, fg_bg=True,
                     _set_tf32(False)
                 errs[term, label] = step_errors(ref, got)
             del ref, got
-    tols = {"G objective": tol or TRAIN_PARITY_TOL, "L1 term": L1_GRAD_TOL}
-    for term, gap in gaps.items():
-        print(f"{tag} {term}, the CPU's float32 step against its float64 "
-              f"step: " + ", ".join(f"{k} {v:.3e}" for k, v in gap.items()),
-              flush=True)
+    tols = {"G objective": tol or TRAIN_PARITY_TOL,
+            "L1 term": L1_GRAD_TOL}
+    tols = {term: tols[term] for term, _ in terms}
+    for label, gap in readings.items():
+        print(f"{tag} G objective, {label}: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in gap.items()), flush=True)
     for (term, label), e in errs.items():
         print(f"{tag} {term}, {label}: " + ", ".join(
             f"{k} {v:.3e}" for k, v in e.items()
@@ -1010,18 +1089,26 @@ def phase_train_parity(model_dir, size=None, fg_bg=True,
           f"tolerances {tols}", flush=True)
     for term, tol in tols.items():
         for label in ("float32", "TF32 flags on"):
-            if any(errs[term, label][k] > t for k, t in tol.items()):
+            if any(errs[term, label].get(k, 0.0) > t
+                   for k, t in tol.items()):
                 raise AssertionError(f"card and CPU train steps disagree "
                                      f"beyond the tolerances ({term}, "
                                      f"{label})")
     guarded_forwards = "control: forwards guarded only, TF32"
-    controls = [("G objective", "control: past the guard, TF32", G_NETS),
-                ("L1 term", guarded_forwards, ("ID_AE",))]
-    if not df256:
+    # (term, run, keys, whether every key must exceed its limit or one)
+    controls = [("G objective", "control: past the guard, TF32", G_NETS,
+                 all)]
+    if d_arch:  # the check as a whole must fail a TF32 step
+        controls = [("G objective", "control: past the guard, TF32",
+                     tuple(tols["G objective"]), any)]
+    else:
+        controls.append(("L1 term", guarded_forwards, ("ID_AE",), all))
+    if not (d_arch or df256):
         controls.append(("G objective", guarded_forwards,
-                         ("Discriminator",)))
-    for term, label, keys in controls:
-        if any(errs[term, label][k] <= tols[term][k] for k in keys):
+                         ("Discriminator",), all))
+    for term, label, keys, need in controls:
+        if not need(errs[term, label].get(k, 0.0) > tols[term][k]
+                    for k in keys):
             raise AssertionError(f"a TF32 train step passes the {keys} "
                                  f"gradient tolerance ({term}, {label}): "
                                  f"the check cannot see TF32")
@@ -1990,7 +2077,13 @@ DF_TRAIN_PAIRS = 36
 # TF32 in the backward passes alone moves the D's gradients less than
 # float32 can resolve (2.7e-3 to 4.3e-3), so here the L1 term's generator
 # gradients (phase 7's L1_GRAD_TOL) show a TF32 backward instead.
-# Market's d_stats limit is kept.
+# Market's d_stats limit is kept. Where the card's G-step loss error comes
+# from (same card): its float32 step reads 3.5e-5 from its own float64
+# step, the same with cuDNN's deterministic algorithms and 1.9e-5 with
+# cuDNN off (PyTorch's im2col + cuBLAS convs), against the CPU's 1.1e-7;
+# the TF32 flags change nothing and TF32 past the guard reads 2.85e-2. So
+# no TF32 runs here: the card's float32 conv arithmetic, amplified by the
+# D's BatchNorm over 2 nearly equal fakes (ROADMAP §3).
 DF_TRAIN_PARITY_TOL = {"g_step_losses": 1e-4, "d_loss": 3e-5,
                        "Encoder": 1.5e-2, "ID_AE": 1.5e-2,
                        "Discriminator": 2e-2, "d_stats": 1e-5}
@@ -2290,6 +2383,407 @@ def phase_df256_kernels(tmp):
     return entries
 
 
+# ------------------------------------------- the remaining CLI modes
+DEMO_IMAGES, DEMO_PAIRS = 8, 10
+D_ARCHS = ("DCGANRegion", "Patch", "FCDis")
+D_ARCH_STEPS, D_ARCH_LOG_STEP = 3, 1
+# Card vs CPU limits of one model-1 step per `--D_arch` (phase 7's method):
+# TRAIN_PARITY_TOL, except the Patch D's gradient. On an NVIDIA H100 80GB
+# HBM3 at 700 W two runs of this phase read, float32 (DCGANRegion / Patch
+# / FCDis; the same with the TF32 flags on): G-step losses 2.6e-7 / 2.0e-7
+# / 1.1e-7, Encoder 7.3e-4 / 7.7e-4 / 8.1e-4, ID_AE 1.7e-4 / 4.4e-4 /
+# 2.4e-5, Discriminator 2.8e-6 to 3.2e-6 / 6.4e-6 and 9.6e-4 / 1.2e-5;
+# past the float32 guard with TF32 on: losses 2.0e-5 / 4.3e-5 / 2.0e-5,
+# Encoder 2.0e-2 / 2.6e-2 / 2.1e-2, Discriminator 1.5e-2 / 2.0e-2 to
+# 2.3e-2 / 1.9e-3 to 2.2e-3. The Patch D's gradient is ill-conditioned at
+# batch 2 on nearly equal fakes: float32 rounding in the fakes or in a
+# sum order moves it by up to ~1e-3. Against each side's own float64 step
+# the card read 5.8e-6 and then 9.6e-4, the CPU 3.9e-4 and then 2.6e-6,
+# the card without cuDNN 2.1e-6 and 1.7e-6. Not TF32: the flags change
+# nothing. Its limit is 5e-3, 5x from float32's 9.6e-4 and 4x from TF32's
+# 2.0e-2.
+D_ARCH_PARITY_TOL = {"DCGANRegion": TRAIN_PARITY_TOL,
+                     "Patch": {**TRAIN_PARITY_TOL, "Discriminator": 5e-3},
+                     "FCDis": TRAIN_PARITY_TOL}
+INVERSION_STEPS, INVERSION_FEW = 300, 5
+# Card vs CPU limits of the inversion (`--inverse_fg --inverse_bg`, batch
+# 16 at full width, the same weights, batch and z0). Adam normalizes each
+# coordinate's gradient, so a coordinate whose gradient is near its eps
+# moves by what float32 makes of it, and the descent carries that: on an
+# NVIDIA H100 80GB HBM3 at 700 W this phase read, after 5 steps, z 1.8e-4
+# apart (the card 2.3e-5 and the CPU 1.6e-4 from a float64 run) and the
+# losses 5.1e-7 relative; after 300, z 4.8e-2 apart (2.2e-2 and 4.9e-2
+# from float64) and the losses 9.6e-5. At the tiny config the port's and
+# the JAX package's float32 runs end 0.11 and 0.14 from a float64 run in z
+# after 200 steps (tests/test_torch_inversion.py). So: z 1e-3 after 5
+# steps, the losses 1e-5; after 300, the losses 2e-3 and z 0.5.
+INVERSION_TOL = {"z_few": 1e-3, "loss_few": 1e-5, "z": 0.5, "loss": 2e-3}
+# (model, batch) of the remat phase: batch 256 is the one the JAX package
+# added --remat for (stage1_app.py:52-58); model 101 at the DF recipe's 6.
+REMAT_RUNS = ((1, 16), (1, 256), (101, 6))
+# The remat step's G-step losses against the plain step's from the same
+# weights and batch (the same forward; the recompute comes after them):
+# on an NVIDIA H100 80GB HBM3 at 700 W they read 0 at batch 16 and for
+# model 101 at 6, and 4.4e-7 relative at batch 256, where cuDNN may pick
+# other algorithms for the memory left: float32 rounding, held at 1e-5.
+REMAT_LOSS_TOL = 1e-5
+
+
+def _demo_inputs(root, h, w):
+    """DEMO_IMAGES random h x w JPEGs with OpenPose-style pickles from a
+    seed: one scored subset per image (one image with none), a few
+    keypoints missing, and DEMO_PAIRS pairs (one naming an image without
+    peaks) -> (img_dir, pair, peaks, subsets paths, the pairs a demo
+    writes: both names with peaks and a subset)."""
+    import pickle
+    from PIL import Image
+    rng = np.random.default_rng(21)
+    img_dir = os.path.join(root, "imgs")
+    os.makedirs(img_dir)
+    names = [f"p{i:02d}.jpg" for i in range(DEMO_IMAGES)]
+    peaks, subsets = {}, {}
+    for n in names:
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+                        ).save(os.path.join(img_dir, n))
+        missing = set(rng.choice(18, 3, replace=False).tolist())
+        peaks[n] = [[] if k in missing else
+                    [(float(rng.integers(4, w - 4)),
+                      float(rng.integers(4, h - 4)), 0.9, k)]
+                    for k in range(18)]
+        s = np.full((1, 20), -1.0)
+        s[0, :18] = [k if k not in missing else -1 for k in range(18)]
+        s[0, -2] = 1.0
+        subsets[n] = s
+    subsets[names[-1]] = np.zeros((0, 20))
+    pairs = [(names[i % DEMO_IMAGES], names[(i + 3) % DEMO_IMAGES])
+             for i in range(DEMO_PAIRS - 1)] + [(names[0], "absent.jpg")]
+    written = sum(1 for a, b in pairs if a in peaks and b in peaks
+                  and len(subsets[a]) and len(subsets[b]))
+    paths = []
+    for obj, fn in ((pairs, "pairs.p"), (peaks, "peaks.p"),
+                    (subsets, "subsets.p")):
+        paths.append(os.path.join(root, fn))
+        with open(paths[-1], "wb") as f:
+            pickle.dump(obj, f, protocol=2)
+    return (img_dir, *paths, written)
+
+
+def phase_demo(tmp):
+    """`--test_one_by_one` through the CLI at full Market width on pairs
+    written from a seed; the same demo on the CPU with the same (cold
+    start) weights: the trees' names equal, pose and mask PNGs bit-equal,
+    G within one level; g_raw and the D score of one pair card vs CPU
+    within PARITY_TOL; ms per pair -> pose launches."""
+    from PIL import Image
+    from dpig_tpu_torch.apps import demo
+    from dpig_tpu_torch.apps.testers import ConditionalTransferTester
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data import pose_tools as pt
+
+    root = os.path.join(tmp, "demo")
+    os.makedirs(root)
+    cfg = Config(model_dir=os.path.join(root, "card"))
+    h, w = cfg.img_H, cfg.img_W
+    img_dir, pairs_p, peaks_p, subsets_p, expected = _demo_inputs(root, h,
+                                                                  w)
+    launches, wall = _run_cli([
+        "--model=12", "--is_train=false", "--test_one_by_one=true",
+        f"--demo_img_dir={img_dir}", f"--demo_pair_path={pairs_p}",
+        f"--demo_all_peaks_path={peaks_p}",
+        f"--demo_subsets_path={subsets_p}", f"--model_dir={cfg.model_dir}"])
+    card_out = os.path.join(cfg.model_dir, "test_demo")
+    written = len(os.listdir(os.path.join(card_out, "G")))
+
+    card = ConditionalTransferTester(cfg)      # the CLI's weights (seed)
+    cpu = ConditionalTransferTester(Config(
+        platform="cpu", model_dir=os.path.join(root, "cpu")),
+        params=card.cpu_state())
+    t0 = time.perf_counter()
+    demo.run_one_by_one(Config(model_dir=os.path.join(root, "timed")),
+                        img_dir, pairs_p, peaks_p, subsets_p, tester=card)
+    torch.cuda.synchronize()
+    pair_ms = (time.perf_counter() - t0) * 1e3 / written
+    cpu_out = demo.run_one_by_one(cpu.cfg, img_dir, pairs_p, peaks_p,
+                                  subsets_p, tester=cpu)
+    trees = [{d: sorted(os.listdir(os.path.join(o, d))) for d in demo.DIRS}
+             for o in (card_out, cpu_out)]
+    worst = {}
+    for d, files in trees[0].items():
+        for f in files:
+            a, b = (np.asarray(Image.open(os.path.join(o, d, f)), np.int16)
+                    for o in (card_out, cpu_out))
+            worst[d] = max(worst.get(d, 0), int(np.abs(a - b).max()))
+
+    import pickle
+    with open(pairs_p, "rb") as f:
+        a, b = pickle.load(f)[0]
+    with open(peaks_p, "rb") as f:
+        peaks = pickle.load(f)
+    with open(subsets_p, "rb") as f:
+        subsets = pickle.load(f)
+    img = np.asarray(Image.open(os.path.join(img_dir, a)).convert("RGB"),
+                     np.float32)
+    batch = demo.pair_batch(img, pt.get_valid_peaks(peaks[a], subsets[a]),
+                            pt.get_valid_peaks(peaks[b], subsets[b]), h, w)
+    g_cpu, s_cpu = _raw_outputs(cpu, batch)
+    g_card, s_card = _raw_outputs(card, batch)
+    diff = (float((g_card - g_cpu).abs().max()),
+            float((s_card - s_cpu).abs().max()))
+    print(f"[demo] --test_one_by_one (CLI) at {h}x{w} hidden "
+          f"{cfg.conv_hidden_num}: {DEMO_PAIRS} pairs, {written} written "
+          f"(one name without peaks, one image without a subset), pose "
+          f"kernel launches {launches} (expected {2 * written}), CLI wall "
+          f"{wall:.1f} s; {pair_ms:.2f} ms per pair on a built tester "
+          f"(transfer step, source pose, 7 PNGs); card vs CPU trees: "
+          f"names equal {trees[0] == trees[1]}, max |diff| per tree "
+          f"{worst}; one pair's (g_raw, score) max|diff| {diff[0]:.3e}, "
+          f"{diff[1]:.3e} (tolerance {PARITY_TOL})", flush=True)
+    if launches != 2 * written or written != expected:
+        raise AssertionError(f"demo: {written} pairs written, {launches} "
+                             "pose launches")
+    if trees[0] != trees[1] or worst["G"] > 1 or any(
+            v for d, v in worst.items() if d != "G"):
+        raise AssertionError(f"demo trees differ: {worst}")
+    if max(diff) > PARITY_TOL:
+        raise AssertionError("demo: card and CPU disagree beyond the "
+                             "tolerance")
+    return {"--test_one_by_one demo": launches}
+
+
+def phase_inversion(tmp):
+    """`--inverse_fg --inverse_bg` through the CLI at full Market width,
+    batch 16, INVERSION_STEPS Adam steps; the same inversion on a built
+    tool (ms per Adam step), and card vs CPU from the same weights, batch
+    and z0 after INVERSION_FEW steps and after INVERSION_STEPS, beside a
+    float64 run of the mappers on the card (what float32 approximates)."""
+    import copy
+    from dpig_tpu_torch.apps.common import batch_to_device
+    from dpig_tpu_torch.apps.inversion import InversionTool
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data.synthetic import SyntheticLoader
+
+    model_dir = os.path.join(tmp, "inversion")
+    os.makedirs(model_dir)
+    launches, wall = _run_cli([
+        "--model=11", "--is_train=false", "--inverse_fg=true",
+        "--inverse_bg=true", "--synthetic_data=true",
+        f"--model_dir={model_dir}"])
+    saved = np.load(os.path.join(model_dir, "inverted_z.npz"))
+    cfg = Config(model_dir=model_dir)
+    card = InversionTool(cfg)
+    host = next(SyntheticLoader(cfg.batch_size, cfg.img_H, cfg.img_W,
+                                seed=cfg.random_seed))
+    z0 = card.draw_noise(torch.Generator().manual_seed(cfg.random_seed),
+                         cfg.batch_size)
+    jb = batch_to_device(host, card.device)
+    runs = {}
+    for steps in (0, INVERSION_STEPS):
+        card.invert(jb, z0, steps=steps)      # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[steps] = card.invert(jb, z0, steps=steps)
+        torch.cuda.synchronize()
+        runs[steps, "ms"] = (time.perf_counter() - t0) * 1e3
+    step_ms = (runs[INVERSION_STEPS, "ms"] - runs[0, "ms"]) / INVERSION_STEPS
+
+    cpu = InversionTool(Config(platform="cpu", model_dir=model_dir),
+                        params=card.cpu_state())
+    exact = copy.deepcopy(card)
+    for mapper in exact.mappers.values():
+        mapper.double()
+        for m in mapper.modules():
+            if isinstance(getattr(m, "dtype", None), torch.dtype):
+                m.dtype = torch.float64
+    encode = exact._encode_app
+    exact._encode_app = lambda batch: encode(batch).double()
+    cb = batch_to_device(host, cpu.device)
+
+    def zdist(a, b):
+        return max(float((x.cpu().double() - y.cpu().double()).abs().max())
+                   for x, y in zip(a[:2], b[:2]))
+
+    res = {}
+    for steps in (INVERSION_FEW, INVERSION_STEPS):
+        got = card.invert(jb, z0, steps=steps)
+        ref = cpu.invert(cb, z0, steps=steps)
+        f64 = exact.invert(jb, {k: v.double() for k, v in z0.items()},
+                           steps=steps)
+        res[steps] = {"z": zdist(got, ref),
+                      "loss": abs(float(got[2]) - float(ref[2]))
+                      / float(ref[2]),
+                      "card-f64 z": zdist(got, f64),
+                      "cpu-f64 z": zdist(ref, f64),
+                      "losses": (float(got[2]), float(ref[2]),
+                                 float(f64[2]))}
+    full = runs[INVERSION_STEPS]
+    same = (np.array_equal(saved["z_fg"], full[0].cpu().numpy())
+            and np.array_equal(saved["z_bg"], full[1].cpu().numpy()))
+    print(f"[inversion] --inverse_fg --inverse_bg (CLI) at "
+          f"{cfg.img_H}x{cfg.img_W} hidden {cfg.conv_hidden_num}, batch "
+          f"{cfg.batch_size}, {INVERSION_STEPS} Adam steps: CLI wall "
+          f"{wall:.1f} s, pose kernel launches {launches} (the inversion "
+          f"renders no pose map, as in JAX); on a built tool "
+          f"{runs[INVERSION_STEPS, 'ms']:.1f} ms in all, the encoder and "
+          f"final loss {runs[0, 'ms']:.1f} ms, {step_ms:.3f} ms per Adam "
+          f"step; inverted_z.npz equal to the built tool's run: {same}; "
+          f"final loss {float(full[2]):.6f}", flush=True)
+    for steps, r in res.items():
+        print(f"[inversion] card vs CPU after {steps} steps: max|diff| z "
+              f"{r['z']:.3e}, loss {r['loss']:.3e} relative; from the "
+              f"float64 run: card z {r['card-f64 z']:.3e}, CPU z "
+              f"{r['cpu-f64 z']:.3e}; losses card / CPU / float64 "
+              f"{r['losses']}", flush=True)
+    if launches:
+        raise AssertionError(f"the inversion launched the pose kernel "
+                             f"{launches} times")
+    few, last = res[INVERSION_FEW], res[INVERSION_STEPS]
+    if (few["z"] > INVERSION_TOL["z_few"]
+            or few["loss"] > INVERSION_TOL["loss_few"]
+            or last["z"] > INVERSION_TOL["z"]
+            or last["loss"] > INVERSION_TOL["loss"]
+            or not np.isfinite(float(full[2]))):
+        raise AssertionError(f"inversion: card and CPU disagree beyond "
+                             f"{INVERSION_TOL}")
+
+
+def phase_d_arch(tmp):
+    """Model 1 through the CLI with each `--D_arch` in float32 and bf16,
+    D_ARCH_STEPS steps (phase 6's launch count, finite metrics, ms per
+    step); then one step card vs CPU per arch (phase 7) -> pose launches
+    per path."""
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.config import Config
+
+    by_path = {}
+    for arch in D_ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            model_dir = os.path.join(tmp, f"d_{arch}_{dtype}")
+            steps = []
+            originals = _timed_steps({1: Stage1App}, {1: steps}, [0])
+            try:
+                launches, wall = _run_cli([
+                    "--model=1", "--synthetic_data=true",
+                    f"--D_arch={arch}", f"--compute_dtype={dtype}",
+                    f"--max_step={D_ARCH_STEPS}",
+                    f"--log_step={D_ARCH_LOG_STEP}",
+                    f"--model_dir={model_dir}"])
+            finally:
+                Stage1App.train_step = originals[1]
+            cfg = Config(model_dir=model_dir, max_step=D_ARCH_STEPS,
+                         log_step=D_ARCH_LOG_STEP)
+            expected = _expected_train_launches(cfg)
+            print(f"[d_arch] model 1 --D_arch={arch} {dtype} (CLI), "
+                  f"{D_ARCH_STEPS} steps of {cfg.batch_size}: ms per step "
+                  f"{[round(s[0], 2) for s in steps]}, finite "
+                  f"{all(s[2] for s in steps)}, pose kernel launches "
+                  f"{launches} (expected {expected}), wall {wall:.1f} s",
+                  flush=True)
+            if launches != expected or len(steps) != D_ARCH_STEPS or not all(
+                    s[2] for s in steps):
+                raise AssertionError(f"--D_arch={arch} {dtype}: {steps}, "
+                                     f"{launches} launches")
+            by_path[f"model 1 D_arch={arch} {dtype}"] = launches
+    for arch in D_ARCHS:
+        phase_train_parity(os.path.join(tmp, f"d_parity_{arch}"),
+                           {"D_arch": arch}, tag=f"[d_arch parity] {arch},",
+                           tol=D_ARCH_PARITY_TOL[arch], d_arch=True,
+                           gaps=arch == "Patch")
+    return by_path
+
+
+def phase_remat(tmp):
+    """Models 1 and 101 through the CLI with `--remat`; then one Stage-I
+    step with and without it (model 1 at batch 16 and 256, model 101 at
+    6) from the same weights and batch: ms per step (the second), the
+    peak of torch.cuda.max_memory_allocated over both steps above what
+    earlier phases hold (the nets, their optimizer state, the batch and
+    the steps), the first step's losses against each other; batch 256
+    without remat may not fit, which is recorded -> pose launches per
+    path."""
+    from dpig_tpu_torch.apps.common import batch_to_device
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data.synthetic import SyntheticLoader
+    from dpig_tpu_torch.kernels import pose_raster
+
+    by_path = {}
+    for model, b in ((1, 16), (101, DF_TRAIN_BATCH)):
+        size = [f"--img_H={DF['img_H']}", f"--img_W={DF['img_W']}"] if (
+            model == 101) else []
+        launches, wall = _run_cli([
+            f"--model={model}", "--synthetic_data=true", "--remat=true",
+            f"--batch_size={b}", "--max_step=2", "--log_step=1",
+            f"--model_dir={os.path.join(tmp, f'remat_cli_{model}')}",
+            *size])
+        expected = _expected_train_launches(Config(max_step=2, log_step=1))
+        print(f"[remat] model {model} --remat=true (CLI), 2 steps of {b}: "
+              f"wall {wall:.1f} s, pose kernel launches {launches} "
+              f"(expected {expected})", flush=True)
+        if launches != expected:
+            raise AssertionError(f"remat CLI: {launches} pose launches")
+        by_path[f"model {model} --remat (CLI)"] = launches
+    for model, b in REMAT_RUNS:
+        size = DF if model == 101 else {}
+        rows = {}
+        for remat in (False, True):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()  # what earlier phases hold
+            torch.cuda.reset_peak_memory_stats()
+            app = Stage1App(Config(batch_size=b, remat=remat,
+                                   model_dir=tmp, **size),
+                            torch.device("cuda"), fg_bg=model == 1)
+            state = app.init_state()
+            batch = batch_to_device(next(SyntheticLoader(
+                b, app.cfg.img_H, app.cfg.img_W, seed=7)), app.device)
+            pose_raster.launches = 0
+            try:
+                first = {k: float(v) for k, v in
+                         app.train_step(state, batch).items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                app.train_step(state, batch)
+                torch.cuda.synchronize()
+            except torch.cuda.OutOfMemoryError as e:
+                if remat or b != 256:
+                    raise
+                rows[remat] = {"fits": False, "error": str(e)[:160]}
+            else:
+                rows[remat] = {
+                    "fits": True, "first": first,
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "peak_GiB": (torch.cuda.max_memory_allocated() - base)
+                    / 2 ** 30,
+                    "launches": pose_raster.launches}
+            del app, state, batch
+            torch.cuda.empty_cache()
+        plain, rem = rows[False], rows[True]
+        gap = None
+        if plain["fits"]:
+            gap = max(abs(rem["first"][k] - v) / abs(v)
+                      for k, v in plain["first"].items() if k != "d_loss")
+        print(f"[remat] model {model} batch {b}: without remat "
+              + (f"{plain['ms']:.1f} ms per step, peak "
+                 f"{plain['peak_GiB']:.2f} GiB" if plain["fits"] else
+                 f"does not fit ({plain['error']})")
+              + f"; with remat {rem['ms']:.1f} ms, peak "
+              f"{rem['peak_GiB']:.2f} GiB; pose kernel launches "
+              f"{rem['launches']} for 2 steps; first step's G losses, "
+              f"remat vs plain: {gap} relative (tolerance {REMAT_LOSS_TOL}); "
+              f"d_loss {rem['first']['d_loss']}"
+              + (f" vs {plain['first']['d_loss']}" if plain["fits"] else ""),
+              flush=True)
+        if rem["launches"] != 2 or (plain["fits"]
+                                    and plain["launches"] != 2):
+            raise AssertionError("remat: the pose kernel was not launched "
+                                 "once per step")
+        if gap is not None and gap > REMAT_LOSS_TOL:
+            raise AssertionError("remat: the step's losses differ from the "
+                                 "plain step's")
+        by_path[f"model {model} remat step, batch {b}"] = rem["launches"]
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card",
@@ -2318,10 +2812,13 @@ def main() -> int:
         df_dirs, df_train = phase_df256_train(tmp)
         df_pose, df_s8 = phase_df256_test(tmp, df_dirs)
         df_entries = phase_df256_kernels(tmp)
+        modes = {**phase_demo(tmp), **phase_d_arch(tmp),
+                 **phase_remat(tmp)}
+        phase_inversion(tmp)
     by_path = {"model 12 transfer": model12, **sampling,
                "model 1 training": train, **stage2, **data, **bf16,
-               **int8_pose, **df_train, **df_pose}
-    for path in (*df_train, *df_pose):
+               **int8_pose, **df_train, **df_pose, **modes}
+    for path in (*df_train, *df_pose, *modes):
         if not by_path[path]:
             raise AssertionError(f"the pose kernel was not launched on "
                                  f"{path}")

@@ -3,11 +3,14 @@
 trainer_256.py:10-265).
 
 Market 128x64 family (model 1): FG/BG two-branch ROI encoder -> 352-d
-embedding + 18-ch pose map -> U-net generator; DCGAN image
-discriminator; G loss = adv + 20*L1; 1 critic iteration per G iteration.
-DeepFashion 256x256 family (model 101): the single-branch ROI encoder
-(224-d, ROI 64, repeat_num+1 stages), the generator at repeat_num-1 and
-a 5-stage D, with the same loss recipe. `train_step` is one G update
+embedding + 18-ch pose map -> U-net generator; the `--D_arch` image
+discriminator (DCGAN by default; DCGANRegion, Patch and the per-pixel
+FCDis score maps, whose losses average over the map); G loss = adv +
+20*L1; 1 critic iteration per G iteration. DeepFashion 256x256 family
+(model 101): the single-branch ROI encoder (224-d, ROI 64, repeat_num+1
+stages), the generator at repeat_num-1 and a 5-stage DCGAN D, with the
+same loss recipe. `--remat` rematerializes the encoder and the generator
+in the train step's backward pass. `train_step` is one G update
 then one D update on the nets in place; `generate_step` /
 `transfer_step` are the inference half the testers use.
 """
@@ -17,6 +20,7 @@ import contextlib
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..losses import gan
@@ -110,7 +114,7 @@ class Stage1App:
         if disc:
             self.disc = get_discriminator(cfg.D_arch, cfg.img_H, cfg.img_W,
                                           n_stages=5 if is_256 else 4,
-                                          dtype=dtype)
+                                          mode=GAN_MODE, dtype=dtype)
             modules["Discriminator"] = self.disc
         state = state or {}
         gen = torch.Generator().manual_seed(cfg.random_seed)
@@ -137,10 +141,19 @@ class Stage1App:
         g_raw, _ = self.generator(embs, pose)
         return g_raw.to(torch.float32)
 
-    def g_forward(self, x, pose, mask, bbox, vis
+    def g_forward(self, x, pose, mask, bbox, vis, remat: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (g_raw [B,H,W,3] float32, embs [B, emb_dim]: 352 FG/BG, 224
-        single-branch)."""
+        single-branch). `remat` (--remat, stage1_app.py:52-58) keeps
+        neither net's activations for the backward pass, which runs each
+        forward again instead (`torch.utils.checkpoint`). Neither net has
+        BatchNorm or dropout, so the second forward gives the same
+        activations; the pose maps are its input, rendered once."""
+        if remat:
+            embs = checkpoint(self._encode, x, mask, bbox, vis,
+                              use_reentrant=False)
+            return checkpoint(self._generate, embs, pose,
+                              use_reentrant=False), embs
         embs = self._encode(x, mask, bbox, vis)
         return self._generate(embs, pose), embs
 
@@ -155,10 +168,6 @@ class Stage1App:
         """Make the nets trainable and wrap them with their optimizers
         (stage1_app.py:66-93). `train_step` takes the returned state."""
         cfg = self.cfg
-        if cfg.remat:
-            raise NotImplementedError(
-                "--remat (activation rematerialization) is not ported to "
-                'dpig_tpu_torch yet (ROADMAP §1, "The remaining CLI modes and options")')
         for m in (self.encoder, self.generator, self.disc):
             m.requires_grad_(True)
         return GanState.create(
@@ -178,8 +187,10 @@ class Stage1App:
                ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         """G objective adv + L1Loss_weight * L1 (trainer.py:605-623), with
         the D normalizing by batch statistics and its running statistics
-        left alone -> (loss, g_raw, the other metrics)."""
-        g_raw, _ = self.g_forward(x, pose, mask, bbox, vis)
+        left alone -> (loss, g_raw, the other metrics). With --remat the
+        encoder and the generator are rematerialized in the backward pass."""
+        g_raw, _ = self.g_forward(x, pose, mask, bbox, vis,
+                                  remat=self.cfg.remat)
         adv = gan.g_loss(GAN_MODE, self._disc_apply(g_raw))
         l1 = l1_loss(g_raw, x)
         loss = adv + self.cfg.L1Loss_weight * l1

@@ -319,9 +319,10 @@ class _TesterBase:
         return self.mappers[name](noise)
 
     def _disc_score(self, g_raw: torch.Tensor) -> torch.Tensor:
-        """D logits of the generated batch, normalized by its own batch
-        statistics (flax train=True with the updated stats discarded), or
-        zeros without a D (testers.py:277-284)."""
+        """D logits of the generated batch in the D's own shape ([B] for
+        DCGAN, a map for the other `--D_arch`s), normalized by its own
+        batch statistics (flax train=True with the updated stats
+        discarded), or zeros [B] without a D (testers.py:277-284)."""
         if self.stage1.disc is None:
             return torch.zeros(g_raw.shape[0], device=g_raw.device)
         return self.stage1._disc_apply(g_raw, train=True)

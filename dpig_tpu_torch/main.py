@@ -46,6 +46,23 @@ On real data, drop --synthetic_data and name the directory of a Market
         --data_dir=<dir> --dataset=Market_train_data --test_batch_num=4 \
         --pretrained_path=<s1> --model_dir=<dir>
 
+The remaining modes of the JAX package's main.py run the same way:
+
+    python -m dpig_tpu_torch.main --model=1 --D_arch=DCGANRegion \
+        --synthetic_data=true --max_step=1000 --model_dir=<s1>
+        # --D_arch=DCGAN (default) | DCGANRegion* | Patch* | FCDis
+    python -m dpig_tpu_torch.main --model=1 --remat=true --batch_size=256 \
+        --synthetic_data=true --max_step=1000 --model_dir=<s1>
+    python -m dpig_tpu_torch.main --model=11 --is_train=false \
+        --inverse_fg=true --inverse_bg=true --pretrained_path=<s1> \
+        --pretrained_appSample_path=<s3> --synthetic_data=true \
+        --model_dir=<dir>    # -> <dir>/inverted_z.npz
+    python -m dpig_tpu_torch.main --model=12 --is_train=false \
+        --test_one_by_one=true --demo_img_dir=<imgs> \
+        --demo_pair_path=<pairs.p> --demo_all_peaks_path=<peaks.p> \
+        --demo_subsets_path=<subsets.p> --pretrained_path=<s1> \
+        --model_dir=<dir>    # -> <dir>/test_demo/{x,G,pose,mask,...}
+
 Training reads `--split` shuffled with `--random_seed`; testing reads the
 test split in file order and raises StopIteration when it ends before
 `--test_batch_num` batches. Weights trained by the JAX package come in
@@ -55,11 +72,13 @@ Runs the Market training chain, Stage I (model 1), the pose AE (2), the
 appearance samplers (3) and the pose sampler (4), each stage's checkpoints
 feeding the `--pretrained_*` flags of the next and of the testers, then
 model-11 sampling, model-12 pose transfer, model-13 factor sampling and
-the `--interpolate_*` factor interpolation, and the DeepFashion twins
-(101-104, 1001, 1002), on the card (`--platform=cpu` for the CPU). As in
-the JAX package, `--model` alone picks training (1-4, 101-104) or testing
-(11, 12, 13, 1001, 1002). Every option whose path is not ported yet
-raises NotImplementedError naming its ROADMAP item.
+the `--interpolate_*` factor interpolation, the embedding inversion
+(`--inverse_fg/bg/pose`) and the one-by-one demo (`--test_one_by_one`),
+and the DeepFashion twins (101-104, 1001, 1002), with every `--D_arch`
+and `--remat`, on the card (`--platform=cpu` for the CPU). As in the JAX
+package, `--model` alone picks training (1-4, 101-104) or testing (11,
+12, 13, 1001, 1002). Multi-process runs (DDP) raise NotImplementedError
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -151,21 +170,38 @@ def _train(cfg: Config, loader):
 
 def test_model(cfg: Config) -> str:
     """The test dispatch of the JAX package's main.py:118-156; returns the
-    output directory."""
-    unported = [f for f in ("test_one_by_one", "inverse_fg", "inverse_bg",
-                            "inverse_pose") if getattr(cfg, f)]
-    if unported:
-        raise NotImplementedError(
-            f"--{unported[0]} is not ported to dpig_tpu_torch yet (ROADMAP "
-            '§1, "The remaining CLI modes and options")')
-    if cfg.model not in (11, 12, 13, 1001, 1002):
-        raise ValueError(f"unknown test model {cfg.model}")
+    output directory (the inversion's: the model_dir)."""
+    if cfg.test_one_by_one:  # before any loader, as in JAX
+        from .apps.demo import run_one_by_one
+        return run_one_by_one(cfg, cfg.demo_img_dir, cfg.demo_pair_path,
+                              cfg.demo_all_peaks_path, cfg.demo_subsets_path)
     with contextlib.closing(make_loader(cfg)) as loader:
         return _test(cfg, loader)
 
 
+def _invert(cfg: Config, loader) -> str:
+    """--inverse_fg/bg/pose (main.py:128-140): invert the first batch, the
+    BG code only with --inverse_bg (so --inverse_fg and --inverse_pose
+    both invert the FG code), from z0 drawn from a CPU torch.Generator
+    seeded with --random_seed; write <model_dir>/inverted_z.npz."""
+    import numpy as np
+    import torch
+    from .apps.inversion import InversionTool
+    tool = InversionTool(cfg)
+    batch = batch_to_device(next(loader), tool.device)
+    z0 = tool.draw_noise(torch.Generator().manual_seed(cfg.random_seed),
+                         batch["x"].shape[0])
+    zf, zb, loss = tool.invert(batch, z0, invert_bg=cfg.inverse_bg)
+    out = f"{cfg.model_dir}/inverted_z.npz"
+    np.savez(out, z_fg=zf.cpu().numpy(), z_bg=zb.cpu().numpy())
+    print(f"[*] inversion loss {float(loss):.6f}; saved {out}")
+    return cfg.model_dir
+
+
 def _test(cfg: Config, loader) -> str:
     from .apps import testers
+    if cfg.inverse_fg or cfg.inverse_bg or cfg.inverse_pose:
+        return _invert(cfg, loader)
     if (cfg.interpolate_fg or cfg.interpolate_fg_up or cfg.interpolate_fg_down
             or cfg.interpolate_bg or cfg.interpolate_pose):
         return testers.InterpolationTester(cfg).run(loader)
@@ -179,7 +215,9 @@ def _test(cfg: Config, loader) -> str:
                                                    pose_source=pose_source)
     if cfg.model in (12, 1001):
         return testers.ConditionalTransferTester(cfg).run(loader)
-    return testers.FactorSamplingTester(cfg).run(loader)  # 13, 1002
+    if cfg.model in (13, 1002):
+        return testers.FactorSamplingTester(cfg).run(loader)
+    raise ValueError(f"unknown test model {cfg.model}")
 
 
 def main(argv=None) -> None:

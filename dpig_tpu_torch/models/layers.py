@@ -44,9 +44,10 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int = 1
-                ) -> torch.Tensor:
-    """NCHW conv with XLA SAME padding; weight OIHW.
+def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int = 1,
+                padding: str = "SAME") -> torch.Tensor:
+    """NCHW conv with XLA SAME padding (or none, `padding="VALID"`);
+    weight OIHW.
 
     A bfloat16 conv sums its exact products in float32 and rounds the
     output once. On the CPU it runs as exactly that, a float32 conv of the
@@ -57,7 +58,9 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int = 1
     conv."""
     if x.dtype == torch.bfloat16 and not x.is_cuda:
         return conv2d_same(x.to(torch.float32), weight.to(torch.float32),
-                           bias, stride).to(x.dtype)
+                           bias, stride, padding).to(x.dtype)
+    if padding == "VALID":
+        return F.conv2d(x, weight, bias, stride)
     ph = same_pads(x.shape[2], weight.shape[2], stride)
     pw = same_pads(x.shape[3], weight.shape[3], stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
@@ -67,23 +70,27 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int = 1
 
 
 class Conv(nn.Module):
-    """flax `nn.Conv` twin: square kernel, SAME padding, bias, computed in
-    `dtype`."""
+    """flax `nn.Conv` twin: square kernel, SAME (or VALID) padding, bias,
+    computed in `dtype`."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 init: str = XAVIER, dtype: torch.dtype = torch.float32):
+                 init: str = XAVIER, dtype: torch.dtype = torch.float32,
+                 padding: str = "SAME"):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(out_ch))
         self.stride = stride
         self.init = init
         self.dtype = dtype
+        self.padding = padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         if dt == torch.float32:
-            return conv2d_same(x.to(dt), self.weight, self.bias, self.stride)
-        y = conv2d_same(x.to(dt), self.weight.to(dt), None, self.stride)
+            return conv2d_same(x.to(dt), self.weight, self.bias, self.stride,
+                               self.padding)
+        y = conv2d_same(x.to(dt), self.weight.to(dt), None, self.stride,
+                        self.padding)
         return y + self.bias.to(dt)[:, None, None]
 
 

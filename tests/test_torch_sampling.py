@@ -473,17 +473,13 @@ def test_cli_interpolation_for_any_test_model(tmp_path):
     assert os.listdir(out) == ["interpolation.png"]
 
 
-# The refusals name their ROADMAP item by title; the ids are the ones these
-# cases had when they named it by number.
+# The id is the one this case had when the refusals named their ROADMAP
+# item by number. --test_one_by_one and --inverse_* run now
+# (tests/test_torch_demo.py, tests/test_torch_inversion.py).
 @pytest.mark.parametrize("flags,match", [
     (["--model=13", "--pretrained_poseAE_path={orbax}"],
-     "orbax checkpoint.*scripts/orbax_to_torch.py"),
-    (["--model=11", "--test_one_by_one=true"],
-     'test_one_by_one.*"The remaining CLI modes and options"'),
-    (["--model=13", "--inverse_fg=true"],
-     'inverse_fg.*"The remaining CLI modes and options"')],
-    ids=["flags3-queue item 5", "flags4-test_one_by_one",
-         "flags5-inverse_fg"])
+     "orbax checkpoint.*scripts/orbax_to_torch.py")],
+    ids=["flags3-queue item 5"])
 def test_cli_unported_options_raise(tmp_path, flags, match):
     """`{orbax}`: a JAX orbax checkpoint (its metadata file), which the
     port reads only once `scripts/orbax_to_torch.py` has imported it."""

@@ -440,11 +440,12 @@ def test_cli_refuses_to_train_without_a_card(tmp_path):
 
 
 def test_unported_training_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="remat.*The remaining"):
-        Stage1App(_small_cfg(tmp_path, remat=True), CPU).init_state()
     # bfloat16 is ported (tests/test_torch_bf16.py); a dtype that is
-    # neither raises, where the JAX package would run float32 silently
+    # neither raises, where the JAX package would run float32 silently.
+    # --remat and every --D_arch run now (tests/test_torch_remat.py,
+    # tests/test_torch_d_arch_train.py); an arch the JAX package does not
+    # know raises its error
     with pytest.raises(ValueError, match="compute_dtype"):
         Stage1App(_small_cfg(tmp_path, compute_dtype="float16"), CPU)
-    with pytest.raises(NotImplementedError, match="D_arch.*The remaining"):
-        Stage1App(_small_cfg(tmp_path, D_arch="DCGANRegion"), CPU)
+    with pytest.raises(ValueError, match="You must choose an architecture"):
+        Stage1App(_small_cfg(tmp_path, D_arch="WGAN"), CPU)
