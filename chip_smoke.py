@@ -195,12 +195,33 @@ Phases, each printing one line; any failure exits non-zero:
               vs CPU from the same weights, batch and z0 within
               INVERSION_TOL after INVERSION_FEW and INVERSION_STEPS steps,
               beside a float64 run of the mappers.
+21. ddp      data parallelism across processes: (a) model 1 through the
+              CLI at full Market width, batch 16, DDP_STEPS steps as rank
+              0 of a one-rank NCCL group (`--coordinator_address=127.0.0.1:
+              <port> --num_processes=1 --process_id=0`: the gradient and
+              metric all-reduces counted in every step), resumed to
+              DDP_RESUME_TO, ms per step beside the same run without a
+              group; (b) two ranks sharing the card on gloo, asked for by
+              argument (NCCL refuses two ranks on one device): one model-1
+              step on two batches of 8 against the world-1 step on the 16
+              rows, in float64 within TRAIN_PARITY_TOL (per-rank
+              BatchNorm statistics outside it) and in float32 (the
+              all-reduce exact, as near the float64 step as world 1's),
+              one model-3 step (`fresh`) within STAGE2_PARITY_TOL (TF32
+              past the guard outside it), ms per step beside world 1's;
+              which gloo collectives take CUDA tensors; (c) one
+              int8 model-12 batch over the two ranks, 8 rows each, with
+              the same tables, against world 1's rows within world 1's
+              int8-vs-float32 gap; the s8 conv on every shape of a batch
+              of 8 bit-equal to its plain version on both kernels (and the
+              pose kernel at B=8 in phase 3).
 
 The line before the last is {"kernels": [...]}: the pose kernel with its
 launches on each path, and the s8 conv's two routes, each with its
 launches on the int8 paths and its times summed over its calls of one
-int8 model-12 batch, and under "df256" over one int8 model-1001 batch at
-256x256; the last line is {"ok": true, "device": {...}}.
+int8 model-12 batch, under "df256" over one int8 model-1001 batch at
+256x256 and under "ddp batch 8" over one rank's int8 model-12 batch of 8;
+the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -228,7 +249,8 @@ INT32_OPS_PER_S = 16.75e12
 RASTER_OPS_PER_ELEMENT, RASTER_OPS_PER_SPAN = 3, 20
 MARKET = dict(b=16, h=128, w=64, k=18)
 RASTER_SHAPES = {"Market": MARKET, "256x256": dict(b=16, h=256, w=256, k=18),
-                 "256x256 B=6": dict(b=6, h=256, w=256, k=18)}
+                 "256x256 B=6": dict(b=6, h=256, w=256, k=18),
+                 "Market B=8": dict(MARKET, b=8)}  # a rank's rows, [ddp]
 # Card vs CPU limit on max |diff| of g_raw and of the D score, batch 2 at
 # full width. Both sides float32; cuDNN and the CPU's conv kernels sum in
 # other orders through ~50 conv layers. On an NVIDIA H100 80GB HBM3 at
@@ -962,15 +984,8 @@ def _l1_term_only():
 
 
 def _float64(app):
-    """A Stage1App's nets with their parameters and their layers' compute
-    dtype (models/layers.py) in float64; the generator's embedding-stem
-    term stays float32 (models/generator.py)."""
-    for net in (app.encoder, app.generator, app.disc):
-        net.to(torch.float64)
-        for m in net.modules():
-            if isinstance(getattr(m, "dtype", None), torch.dtype):
-                m.dtype = torch.float64
-    return app
+    from dpig_tpu_torch.train.parity import to_float64
+    return to_float64(app)
 
 
 def _float32_gaps(cfgs, batch, fg_bg, ref):
@@ -2784,7 +2799,454 @@ def phase_remat(tmp):
     return by_path
 
 
+# ------------------------------------------------------------------ DDP
+# [ddp]: data parallelism across processes (dpig_tpu_torch/parallel/).
+DDP_STEPS, DDP_RESUME_TO, DDP_LOG_STEP = 6, 8, 2
+DDP_TIMED_STEPS = 2          # steps timed after the recorded one
+DDP_RANKS_TIMEOUT = 480.0    # s, the two-rank group as a whole
+# Two ranks of 8 rows against world 1 on 16, the whole step in float64
+# (the embedding-stem sum, the nets' outputs and the ROI crop too): the
+# card read at most 5.7e-15 on these keys (PERF.md §6), and the updated
+# params at most 1.4e-10 apart; the same step with each rank's own
+# BatchNorm statistics 8.3e-3 and up.
+DDP_FLOAT64_TOL = {"g_step_losses": 1e-12, "d_loss": 1e-12, "Encoder": 1e-12,
+                   "ID_AE": 1e-12, "Discriminator": 1e-12, "d_stats": 1e-12}
+DDP_FLOAT64_UPDATE_TOL = 1e-8
+
+
+def _ddp_cli(model_dir, max_step, nccl):
+    """Model 1 through the CLI at full Market width, each step timed (a
+    synchronize after it); with `nccl`, as rank 0 of a one-rank NCCL group
+    (`--coordinator_address=127.0.0.1:<free port> --num_processes=1
+    --process_id=0`). -> (ms per step, {(backend, world)} seen in the
+    steps, pose launches, the collectives the steps reached)."""
+    from dpig_tpu_torch import main as port_main
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.kernels import pose_raster
+    from dpig_tpu_torch.parallel import dist
+
+    argv = ["--model=1", "--synthetic_data=true", f"--max_step={max_step}",
+            f"--log_step={DDP_LOG_STEP}", f"--model_dir={model_dir}"]
+    if nccl:
+        argv += [f"--coordinator_address=127.0.0.1:{dist.free_port()}",
+                 "--num_processes=1", "--process_id=0"]
+    step_ms, seen = [], set()
+    calls = {"average_gradients": 0, "global_metrics": 0}
+    saved = {k: getattr(dist, k) for k in calls}
+    train_step = Stage1App.train_step
+
+    def counting(name):
+        def call(*args, **kw):
+            calls[name] += dist.is_distributed()
+            return saved[name](*args, **kw)
+        return call
+
+    def timed_step(app, state, batch):
+        t0 = time.perf_counter()
+        metrics = train_step(app, state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        seen.add((torch.distributed.get_backend() if dist.is_distributed()
+                  else None, dist.world()))
+        return metrics
+
+    Stage1App.train_step = timed_step
+    for k in calls:
+        setattr(dist, k, counting(k))
+    try:
+        pose_raster.launches = 0
+        port_main.main(argv)
+        torch.cuda.synchronize()
+        launches = pose_raster.launches
+    finally:
+        Stage1App.train_step = train_step
+        for k, f in saved.items():
+            setattr(dist, k, f)
+    if dist.is_distributed():
+        raise AssertionError("the CLI left its process group open")
+    return step_ms, seen, launches, calls
+
+
+def _params_of(nets):
+    return {name: {k: v.detach().cpu().clone()
+                   for k, v in m.state_dict().items()}
+            for name, m in nets.items()}
+
+
+def phase_ddp(tmp):
+    """(a) Model 1 through the CLI at full Market width, batch 16, as rank
+    0 of a one-rank NCCL group (every collective of the step runs), with
+    a resume, beside the same run without a group (runs in turns: none,
+    NCCL, NCCL resumed, none). (b) Two ranks sharing the one card on
+    gloo (NCCL refuses two ranks on one device), asked for by argument,
+    from the same weights, the D step and each critic iteration started
+    where world 1's were: one full-width model-1 step on two batches of 8
+    against the world-1 step on the batch of 16 in float64, the whole
+    step (the step's arithmetic: metrics, gradients, the D's running
+    statistics within DDP_FLOAT64_TOL, the updated params within
+    DDP_FLOAT64_UPDATE_TOL, rank 1's record bit-equal to rank 0's; the
+    same step with each rank's own BatchNorm statistics must break them);
+    in float64 but for the float32 parts
+    `to_float64` keeps by default, the embedding-stem sum and the nets'
+    outputs, and with the outputs' alone (each within TRAIN_PARITY_TOL:
+    where the float64 gap comes from); and in float32 (the averaged
+    gradients the mean of the ranks' own bit for bit; no further from the
+    float64 step than world 1's float32 step is, twice, on the G-step
+    losses and gradients: cuDNN's
+    float32 algorithms differ by batch size); one model-3 step (`fresh`)
+    in float32 within STAGE2_PARITY_TOL, TF32 past the guard outside it.
+    (c) One
+    int8 model-12 batch over the two ranks, each on its 8 rows with the
+    tables calibrated on the 16 (rank 0's given to both), against the
+    world-1 batch within its own int8-vs-float32 gap; the s8 conv on
+    every shape of a batch of 8, bit-equal to its plain version.
+    The collectives probe runs in the same group: gloo takes the CUDA
+    tensors `dist` hands it.
+    -> (pose launches by path, s8 launches by path, the s8 entries at
+    batch 8)."""
+    from dpig_tpu_torch.apps.common import batch_to_device, select_device
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.apps.stage2_app import Stage2AppApp
+    from dpig_tpu_torch.apps.testers import ConditionalTransferTester
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data.synthetic import SyntheticLoader
+    from dpig_tpu_torch.kernels import pose_raster
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    from dpig_tpu_torch.parallel import ranks
+    from dpig_tpu_torch.train import checkpoint as ckpt
+    from dpig_tpu_torch.train.parity import (recorded_train_step,
+                                             step_errors, to_float64)
+
+    # (a) ------------------------------------------------------------
+    pose_by_path, s8_by_path, runs = {}, {}, {}
+    cfg = Config(max_step=DDP_STEPS, log_step=DDP_LOG_STEP)
+    expected = _expected_train_launches(cfg)
+    for label, d, max_step, nccl in (
+            ("no group", "ddp_plain_a", DDP_STEPS, False),
+            ("NCCL world 1", "ddp_nccl", DDP_STEPS, True),
+            ("NCCL world 1, resumed", "ddp_nccl", DDP_RESUME_TO, True),
+            ("no group, again", "ddp_plain_b", DDP_STEPS, False)):
+        model_dir = os.path.join(tmp, d)
+        ms, seen, launches, calls = _ddp_cli(model_dir, max_step, nccl)
+        n = len(ms)
+        want_seen = {("nccl", 1)} if nccl else {(None, 1)}
+        want_calls = 2 * n if nccl else 0
+        print(f"[ddp] model 1 CLI, {label}: {n} steps, ms per step "
+              f"{[round(x, 2) for x in ms]}, median after the first "
+              f"{statistics.median(ms[1:]):.2f}; process group {seen}; "
+              f"gradient all-reduces {calls['average_gradients']} "
+              f"(expected {want_calls}), metric all-reduces "
+              f"{calls['global_metrics']}; pose launches {launches}",
+              flush=True)
+        if seen != want_seen or calls["average_gradients"] != want_calls \
+                or calls["global_metrics"] != (n if nccl else 0):
+            raise AssertionError(f"[ddp] {label}: the steps did not run in "
+                                 f"the process group asked for")
+        if max_step == DDP_STEPS and launches != expected:
+            raise AssertionError(f"[ddp] {label}: {launches} pose "
+                                 f"launches, expected {expected}")
+        if not launches:
+            raise AssertionError(f"[ddp] {label}: no pose launch")
+        runs[label] = ms
+        pose_by_path[f"[ddp] model 1 CLI, {label}"] = launches
+    nccl_dir = os.path.join(tmp, "ddp_nccl")
+    with open(os.path.join(nccl_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line)["step"] for line in f]
+    saved = sorted(os.listdir(os.path.join(nccl_dir, "ckpt")))
+    stored = torch.load(os.path.join(ckpt.latest_checkpoint(nccl_dir),
+                                     ckpt.STATE_FILE), map_location="cpu",
+                        weights_only=True)
+    want_logged = [s for s in range(DDP_RESUME_TO)
+                   if s == 0 or s % DDP_LOG_STEP == DDP_LOG_STEP - 1]
+    print(f"[ddp] NCCL run resumed from step {DDP_STEPS} to "
+          f"{DDP_RESUME_TO}: {len(runs['NCCL world 1, resumed'])} steps, "
+          f"metrics.jsonl steps {logged}, checkpoints {saved}, last at step "
+          f"{stored['step']}", flush=True)
+    if (len(runs["NCCL world 1, resumed"]) != DDP_RESUME_TO - DDP_STEPS
+            or logged != want_logged or stored["step"] != DDP_RESUME_TO
+            or saved != [f"step_{DDP_STEPS:08d}",
+                         f"step_{DDP_RESUME_TO:08d}"]):
+        raise AssertionError("[ddp] the NCCL run did not resume")
+    plain = statistics.median(runs["no group"][1:]
+                              + runs["no group, again"][1:])
+    with_group = statistics.median(runs["NCCL world 1"][1:])
+    print(f"[ddp] model 1, batch 16, ms per step after the first: no group "
+          f"{plain:.2f} (both runs), NCCL world 1 {with_group:.2f}: "
+          f"{with_group - plain:+.2f} ms ({with_group / plain - 1:+.2%})",
+          flush=True)
+
+    # (b) and (c): inputs and the world-1 references ------------------
+    dev = select_device("")
+    cfg16 = Config(batch_size=16, model_dir=os.path.join(tmp, "ddp_ranks"))
+    h, w = cfg16.img_H, cfg16.img_W
+    host16 = next(SyntheticLoader(16, h, w, seed=91))
+    app = Stage1App(cfg16, dev)
+    params1 = _params_of({"Encoder": app.encoder, "ID_AE": app.generator,
+                          "Discriminator": app.disc})
+    del app
+    app = Stage1App(cfg16, dev, state=params1)
+    one = recorded_train_step(app, host16)
+    b16 = batch_to_device(host16, dev)
+    one_ms = []
+    for _ in range(DDP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        app.train_step(one.state, b16)
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    del app, one.state
+    one64 = recorded_train_step(to_float64(Stage1App(
+        cfg16, dev, state=params1), stem=True, outputs=True), host16)
+    one64_d = {k: v.detach().cpu()
+               for k, v in one64.state.d_opt.params.items()}
+    del one64.state
+    parts32 = {}  # float64 but for to_float64's float32 parts
+    for label, stem in (("the stem's sum and the outputs float32", False),
+                        ("the outputs float32", True)):
+        parts32[label] = recorded_train_step(to_float64(Stage1App(
+            cfg16, dev, state=params1), stem=stem), host16)
+        del parts32[label].state
+
+    s2 = Stage2AppApp(cfg16, dev)
+    frozen = _params_of(s2.frozen)
+    params3 = _params_of({**s2.mappers, **s2.critics})
+    loader = SyntheticLoader(16, h, w, seed=93)
+    host3 = tuple(next(loader) for _ in range(s2.batches_per_step))
+    noise = s2.step_noise(torch.Generator().manual_seed(5), 16).cpu()
+    one3 = recorded_train_step(s2, host3, noise=noise)
+    dev3 = tuple(batch_to_device(b, dev) for b in host3)
+    one3_ms = []
+    for _ in range(DDP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        s2.train_step(one3.state, dev3, noise.to(dev))
+        torch.cuda.synchronize()
+        one3_ms.append((time.perf_counter() - t0) * 1e3)
+    del s2, one3.state, dev3
+
+    f32 = ConditionalTransferTester(Config(model_dir=cfg16.model_dir))
+    state12 = f32.cpu_state()
+    int8_cfg = dict(model_dir=cfg16.model_dir, inference_dtype="int8",
+                    int8_selfcheck=False)
+    pose_raster.launches = sc.launches = 0
+    sc.launches_by_route = dict.fromkeys(sc.ROUTES, 0)
+    t8 = ConditionalTransferTester(Config(**int8_cfg), params=state12)
+    t8._inference_params(b16)
+    images16 = t8.transfer_step(b16)[0].cpu()
+    torch.cuda.synchronize()
+    pose_by_path["[ddp] int8 model 12, world 1, batch 16"] = \
+        pose_raster.launches
+    s8_by_path["[ddp] int8 model 12, world 1, batch 16"] = dict(
+        sc.launches_by_route)
+    gap = (images16 - f32.transfer_step(b16)[0].cpu()).abs()
+    del f32
+    torch.cuda.empty_cache()
+
+    common1 = dict(cfg=dict(batch_size=16, model_dir=cfg16.model_dir),
+                   params=params1, batch=host16)
+    common3 = dict(cls="Stage2AppApp", cfg=common1["cfg"], frozen=frozen,
+                   params=params3, batches=host3, noise=noise,
+                   g_updated=one3.g_updated, d_clipped=one3.d_clipped)
+    # rank 0 returns the records, rank 1 their digest (the disk's writes)
+    errors_only = dict(lean=True, returns=("metrics", "arrays", "grads",
+                                           "d_stats"))
+    jobs = [("stage1", {**common1, "g_updated": one.g_updated,
+                        "timed_steps": DDP_TIMED_STEPS, "local_grads": True,
+                        "lean": True, "returns": (*errors_only["returns"],
+                                                  "ms", "local_grads")}),
+            ("stage1", {**common1, "g_updated": one64.g_updated,
+                        "float64": True, "stem64": True, "outputs64": True,
+                        "lean": True}),
+            ("stage1", {**common1, "g_updated": one64.g_updated,
+                        "float64": True, "stem64": True, "outputs64": True,
+                        "local_bn": True, **errors_only}),
+            *[("stage1", {**common1, "g_updated": rec.g_updated,
+                          "float64": True, "stem64": "sum" not in label,
+                          **errors_only})
+              for label, rec in parts32.items()],
+            ("stage2", {**common3, "timed_steps": DDP_TIMED_STEPS}),
+            ("stage2", {**common3, "control": True}),
+            ("int8_transfer", dict(cfg=int8_cfg, params=state12,
+                                   batch=host16)),
+            ("collectives", {"timed_numel": sum(
+                v.numel() for k in ("Encoder", "ID_AE")
+                for v in params1[k].values())})]
+    t0 = time.perf_counter()
+    outs = ranks.run_many(jobs, n=2, platform="", backend="gloo",
+                          timeout=DDP_RANKS_TIMEOUT)
+    wall = time.perf_counter() - t0
+    print(f"[ddp] two ranks on one card (gloo over CUDA tensors, "
+          f"asked for by argument): {len(jobs)} jobs in one group, "
+          f"{wall:.1f} s with the processes' start-up", flush=True)
+
+    def show(text, e):
+        print(f"[ddp] {text}: " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in e.items()), flush=True)
+
+    def over(e, tol):
+        return [k for k, t in tol.items() if e.get(k, 0.0) > t]
+
+    failures = []
+    w32, w64, w64_local, *w64_parts32 = outs[:3 + len(parts32)]
+    s3, s3_control, int8, probe = outs[3 + len(parts32):]
+    for name, out in (("model 1", w32), ("model 1 float64", w64),
+                      ("model 3 (fresh)", s3)):
+        if out[0]["metrics"] != out[1]["metrics"]:
+            failures.append(f"{name}: the ranks' metrics differ")
+    lean = {"model 1 float32": w32, "model 1 float64": w64,
+            **{f"model 1 float64 but {k}": o
+               for k, o in zip(parts32, w64_parts32)}}
+    for name, out in lean.items():  # then rank 0 stands for both
+        same = out[0]["digest"] == out[1]["digest"]
+        print(f"[ddp] {name}: rank 1's record (gradients, statistics, "
+              f"updated params) bit-equal to rank 0's: {same}", flush=True)
+        if not same:
+            failures.append(f"{name}: the ranks' records differ")
+    # model 1 in float64: the step's arithmetic, against world 1's in
+    # float64; the fault the check must see: each rank's own BN statistics
+    for r, o in enumerate(w64[:1]):
+        e = step_errors(one64, ranks.as_record(o))
+        show(f"model 1 float64, rank {r} of 2 (batch 8) against world 1 "
+             f"(batch 16)", e)
+        updates = [(o["g_updated"], one64.g_updated, "G"),
+                   (o["d_params"], one64_d, "D")]
+        moved = {what: float(torch.cat([(got[k] - v).abs().reshape(-1)
+                                        for k, v in want.items()]).max())
+                 for got, want, what in updates}
+        print(f"[ddp] model 1 float64, rank {r}: updated params max|diff| "
+              f"{moved} (limit {DDP_FLOAT64_UPDATE_TOL})", flush=True)
+        if over(e, DDP_FLOAT64_TOL) or max(
+                moved.values()) > DDP_FLOAT64_UPDATE_TOL:
+            failures.append(f"model 1 float64 rank {r}: "
+                            f"{over(e, DDP_FLOAT64_TOL)} {moved}")
+    for r, o in enumerate(w64_local[:1]):
+        e = step_errors(one64, ranks.as_record(o))
+        show(f"control: model 1 float64, rank {r}, the D normalized by the "
+             f"rank's own batch statistics (the ranks' running statistics "
+             f"differ)", e)
+        if not over(e, DDP_FLOAT64_TOL):
+            failures.append(f"model 1 rank {r}: per-rank BatchNorm passes "
+                            "every limit")
+    # the same with float32 parts: the stem's sum (a cuBLAS product over
+    # the batch's rows: 8 rows may round otherwise than 16) and the nets'
+    # outputs, from which the losses are computed
+    for (label, ref), out in zip(parts32.items(), w64_parts32):
+        for r, o in enumerate(out[:1]):
+            e = step_errors(ref, ranks.as_record(o))
+            show(f"model 1 float64 but {label}, rank {r} of 2 against "
+                 f"world 1 the same", e)
+            if over(e, TRAIN_PARITY_TOL):
+                failures.append(f"model 1 float64 but {label}, rank {r}: "
+                                f"{over(e, TRAIN_PARITY_TOL)}")
+    # model 1 in float32: the all-reduce exact, and world 2 no further from
+    # the float64 step than world 1 is (cuDNN's float32 algorithms differ
+    # by batch size and the first ROI-tower stage amplifies their rounding)
+    gap1 = step_errors(one64, one)
+    show("model 1 float32, world 1 (batch 16) against world 1 in float64",
+         gap1)
+    for r, o in enumerate(w32[:1]):
+        local = [x["local_grads"] for x in w32]
+        exact = all(torch.equal(o["grads"][k], (local[0][k] + local[1][k])
+                                / 2) for k in o["grads"])
+        e64 = step_errors(one64, ranks.as_record(o))
+        show(f"model 1 float32, rank {r} of 2 against world 1 in float64",
+             e64)
+        show(f"model 1 float32, rank {r} of 2 against world 1 in float32",
+             step_errors(one, ranks.as_record(o)))
+        print(f"[ddp] model 1 float32, rank {r}: the averaged gradients equal "
+              f"the mean of the ranks' own, bit for bit: {exact}", flush=True)
+        worse = [k for k in ("g_step_losses", "Encoder", "ID_AE")
+                 if e64[k] > max(2 * gap1[k], TRAIN_PARITY_TOL[k])]
+        if worse or not exact:
+            failures.append(f"model 1 float32 rank {r}: {worse}, exact "
+                            f"all-reduce {exact}")
+    # model 3 in float32, with the TF32 control of phase 11
+    tol3 = {k: STAGE2_PARITY_TOL for k in step_errors(one3, one3)}
+    for label, out in (("float32", s3),
+                       ("control: TF32 past the guard", s3_control)):
+        for r, o in enumerate(out):
+            e = step_errors(one3, ranks.as_record(o))
+            show(f"model 3 (fresh), rank {r} of 2 (batch 8) against world 1 "
+                 f"(batch 16), {label}", e)
+            if label == "float32" and over(e, tol3):
+                failures.append(f"model 3 rank {r}: {over(e, tol3)}")
+            if label != "float32" and not over(e, tol3):
+                failures.append(f"model 3 rank {r}: a TF32 step passes "
+                                "every limit")
+    for name, ms1, out in (("model 1", one_ms, w32), ("model 3 (fresh)",
+                                                      one3_ms, s3)):
+        two_ms = [statistics.median(o["ms"]) for o in out]
+        print(f"[ddp] {name} float32: ms per step, world 1 on 16 rows "
+              f"{[round(x, 2) for x in ms1]}; two ranks on 8 rows each, "
+              f"sharing the card "
+              f"{[[round(x, 2) for x in o['ms']] for o in out]} (the slower "
+              f"rank's median {max(two_ms):.2f}, "
+              f"{max(two_ms) / statistics.median(ms1):.2f}x world 1)",
+              flush=True)
+    for r, o in enumerate(w32):  # model 3's step renders no pose map
+        pose_by_path[f"[ddp] model 1 step, rank {r} of 2"] = \
+            o["pose_launches"]
+    if not all(o["pose_launches"] for o in w32):
+        failures.append("model 1 on the ranks launched no pose kernel")
+
+    for r, o in enumerate(int8):
+        rows = images16[8 * r:8 * r + 8]
+        diff = (o["images"] - rows).abs()
+        print(f"[ddp] int8 model 12, rank {r} of 2 (8 rows, rank 0's "
+              f"tables) against world 1's rows: max|diff| "
+              f"{float(diff.max()):.3e}, mean {float(diff.mean()):.3e}, "
+              f"{int((diff > 0).sum())} of {diff.numel()} values differ; "
+              f"limit: world 1's int8-vs-float32 gap, max "
+              f"{float(gap.max()):.3e}, mean {float(gap.mean()):.3e}; "
+              f"{o['ms'][0]:.1f} ms; s8 launches {o['s8_launches']}, pose "
+              f"launches {o['pose_launches']}", flush=True)
+        if float(diff.max()) > float(gap.max()) or \
+                float(diff.mean()) > float(gap.mean()):
+            failures.append(f"int8 rank {r} beyond the int8 gap")
+        if not all(o["s8_launches"].values()) or not o["pose_launches"]:
+            failures.append(f"int8 rank {r}: a kernel was not launched")
+        pose_by_path[f"[ddp] int8 model 12, rank {r} of 2"] = \
+            o["pose_launches"]
+        s8_by_path[f"[ddp] int8 model 12, rank {r} of 2"] = o["s8_launches"]
+    print(f"[ddp] one gloo all-reduce of the G gradients' "
+          f"{jobs[-1][1]['timed_numel']} float32 values "
+          f"({4 * jobs[-1][1]['timed_numel'] / 1e6:.1f} MB) between the two "
+          f"ranks on the card: ms "
+          f"{[round(x, 2) for x in probe[0]['all_reduce_ms']]}", flush=True)
+    for r, o in enumerate(probe):
+        print(f"[ddp] gloo collectives on CUDA tensors, each called "
+              f"directly, rank {r}: {o['collectives']} (the ones "
+              f"dpig_tpu_torch/parallel/dist.py hands the device's "
+              f"tensors to)", flush=True)
+        if any(v != "ok" for v in o["collectives"].values()):
+            failures.append("gloo refuses or gets wrong a collective the "
+                            "port hands it CUDA tensors for")
+    if failures:
+        raise AssertionError("[ddp] " + "; ".join(failures))
+
+    b8 = {k: v[:8] for k, v in b16.items()}
+    entries, n_calls = _s8_table(t8, b8, "[ddp s8 conv]",
+                                 "one int8 model-12 batch of 8 (a rank's "
+                                 "rows)", reps=10, inner=10)
+    if n_calls != S8_ENCODER_CONVS + S8_GENERATOR_CONVS:
+        raise AssertionError(f"[ddp] {n_calls} s8 launches at batch 8")
+    return pose_by_path, s8_by_path, entries
+
+
+def _timed(phase):
+    """`phase`, printing the seconds each call of it took."""
+    @functools.wraps(phase)
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return phase(*args, **kw)
+        finally:
+            print(f"[time] {phase.__name__}: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return run
+
+
 def main() -> int:
+    for k in [k for k in globals() if k.startswith("phase_")]:
+        globals()[k] = _timed(globals()[k])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card",
               file=sys.stderr)
@@ -2815,9 +3277,10 @@ def main() -> int:
         modes = {**phase_demo(tmp), **phase_d_arch(tmp),
                  **phase_remat(tmp)}
         phase_inversion(tmp)
+        ddp_pose, ddp_s8, ddp_entries = phase_ddp(tmp)
     by_path = {"model 12 transfer": model12, **sampling,
                "model 1 training": train, **stage2, **data, **bf16,
-               **int8_pose, **df_train, **df_pose, **modes}
+               **int8_pose, **df_train, **df_pose, **modes, **ddp_pose}
     for path in (*df_train, *df_pose, *modes):
         if not by_path[path]:
             raise AssertionError(f"the pose kernel was not launched on "
@@ -2825,12 +3288,15 @@ def main() -> int:
     kernel["launches"] = sum(by_path.values())
     kernel["launches_by_path"] = by_path
     s8_by_path.update(df_s8)
+    s8_by_path.update(ddp_s8)
     for route, entry in s8.items():
-        entry["df256"] = {k: df_entries[route][k] for k in (
-            "per", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "mma_sync_ms", "cudnn_bf16_ms", "max_abs_err", "shapes")}
-        entry["max_abs_err"] = max(entry["max_abs_err"],
-                                   df_entries[route]["max_abs_err"])
+        for key, sub in (("df256", df_entries), ("ddp batch 8", ddp_entries)):
+            entry[key] = {k: sub[route][k] for k in (
+                "per", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "mma_sync_ms", "cudnn_bf16_ms", "max_abs_err",
+                "shapes")}
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       sub[route]["max_abs_err"])
         entry["launches_by_path"] = {p: n[route]
                                      for p, n in s8_by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

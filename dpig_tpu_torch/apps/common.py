@@ -10,6 +10,7 @@ import torch
 from ..config import Config
 from ..losses import gan
 from ..ops.pose import render_pose_maps
+from ..parallel import dist
 
 
 def critic_batches_per_step(cfg: Config) -> int:
@@ -26,14 +27,15 @@ def critic_batches_per_step(cfg: Config) -> int:
 
 def select_device(platform: str) -> torch.device:
     """`--platform` -> torch device: '' is the card and raises without
-    one; 'cpu' is the CPU. Nothing falls back silently."""
+    one; 'cpu' is the CPU. Nothing falls back silently. In a process group
+    the card is the rank's own (`parallel.dist.rank_device`)."""
     if platform == "":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: dpig_tpu_torch runs on the card by default; "
                 "pass --platform=cpu (Config(platform='cpu')) to run on the "
                 "CPU")
-        return torch.device("cuda")
+        return dist.rank_device()
     if platform == "cpu":
         return torch.device("cpu")
     raise ValueError(f"--platform must be '' (the card) or 'cpu', got "

@@ -28,6 +28,7 @@ from ..models.discriminators import get_discriminator
 from ..models.encoders import RoiEncoder, RoiEncoderFgBg
 from ..models.generator import UAEGenerator
 from ..models.layers import init_weights
+from ..parallel import dist
 from ..train.state import GanState
 from .common import l1_loss, masked_l1_loss, pose_maps_from_batch, select_parts
 
@@ -82,6 +83,7 @@ class Stage1App:
                              f"{cfg.compute_dtype!r}")
         self.cfg = cfg
         self.device = device
+        self.out_dtype = torch.float32  # the nets' outputs, as in JAX
         self.dtype = dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         # stage1_app.py:41-63: the FG/BG encoder exists only for the
         # 128x64 family, so fg_bg is normalized as JAX does it; model 101
@@ -133,13 +135,13 @@ class Stage1App:
         """The appearance code; the fg mask is read by the FG/BG encoder
         only (stage1_app.py:96-99)."""
         if self.fg_bg:
-            return self.encoder(x, mask, bbox, vis).to(torch.float32)
-        return self.encoder(x, bbox, vis).to(torch.float32)
+            return self.encoder(x, mask, bbox, vis).to(self.out_dtype)
+        return self.encoder(x, bbox, vis).to(self.out_dtype)
 
     @full_float32()
     def _generate(self, embs, pose) -> torch.Tensor:
         g_raw, _ = self.generator(embs, pose)
-        return g_raw.to(torch.float32)
+        return g_raw.to(self.out_dtype)
 
     def g_forward(self, x, pose, mask, bbox, vis, remat: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -161,7 +163,7 @@ class Stage1App:
     def _disc_apply(self, img, train: bool = True,
                     update_stats: bool = False) -> torch.Tensor:
         return self.disc(img, train=train,
-                         update_stats=update_stats).to(torch.float32)
+                         update_stats=update_stats).to(self.out_dtype)
 
     # --------------------------------------------------------------- train
     def init_state(self) -> GanState:
@@ -207,6 +209,7 @@ class Stage1App:
         return gan.d_loss(GAN_MODE, d_real, d_fake)
 
     @full_float32()
+    @dist.global_batch_stats()
     def train_step(self, state: GanState, batch: Mapping[str, torch.Tensor],
                    mark: Optional[Callable[[str], None]] = None
                    ) -> Dict[str, torch.Tensor]:
@@ -221,7 +224,12 @@ class Stage1App:
         (reference-faithful, trainer.py:337-345), or with
         `--fast_gan_step` the G step's own output. `mark(phase)`, if given,
         is called after each phase of TRAIN_PHASES is enqueued (the
-        profiler's CUDA events)."""
+        profiler's CUDA events).
+
+        Across ranks (`parallel.dist`) `batch` is this rank's rows of the
+        global batch, the D's BatchNorm takes the global batch's
+        statistics, the optimizers average the gradients, and the metrics
+        are the global batch's, the same on every rank."""
         mark = mark or (lambda phase: None)
         x, pose, mask, bbox, vis = self.step_inputs(batch)
         mark("inputs")
@@ -245,7 +253,7 @@ class Stage1App:
         state.step += 1
         mark("d_update")
         metrics = {"g_loss": g_total, "d_loss": d_total, **aux}
-        return {k: v.detach() for k, v in metrics.items()}
+        return dist.global_metrics({k: v.detach() for k, v in metrics.items()})
 
     # ----------------------------------------------------------- generate
     @torch.inference_mode()

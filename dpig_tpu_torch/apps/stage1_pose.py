@@ -16,6 +16,7 @@ from ..config import Config
 from ..models.layers import init_weights
 from ..models.pose_ae import PoseDecoderFC, PoseEncoderFC, assemble_pose_rcv
 from ..ops.pose import pose_rcv_normalize, render_pose_maps
+from ..parallel import dist
 from ..train.state import GanState
 from .stage1_app import full_float32
 
@@ -91,7 +92,8 @@ class Stage1PoseApp:
                    ) -> Dict[str, torch.Tensor]:
         """One Adam update of the AE on 20 * MSE of the normalized rcv
         (stage1_pose.py:56-71), in place on `state` (from this app's
-        `init_state`); state.step += 1."""
+        `init_state`); state.step += 1. Across ranks the gradients are
+        averaged and the losses are the global batch's."""
         cfg = self.cfg
         rcv_norm = pose_rcv_normalize(batch["pose_rcv"], cfg.img_H, cfg.img_W)
         recon, _ = self.autoencode(rcv_norm.reshape(rcv_norm.shape[0], -1))
@@ -99,4 +101,5 @@ class Stage1PoseApp:
         loss = mse * 20.0  # trainer.py:670
         state.g_opt.step(torch.autograd.grad(loss, state.g_params))
         state.step += 1
-        return {"reconstruct_loss": mse.detach(), "loss": loss.detach()}
+        return dist.global_metrics({"reconstruct_loss": mse.detach(),
+                                    "loss": loss.detach()})

@@ -31,6 +31,7 @@ from ..losses import gan
 from ..models.discriminators import FCDiscriminator
 from ..models.layers import init_weights
 from ..models.mappers import GaussianMapper, sample_mapper_noise
+from ..parallel import dist
 from ..train.state import GanState
 from .common import critic_batches_per_step, pose_maps_from_batch, select_parts
 from .stage1_app import Stage1App, full_float32
@@ -113,6 +114,12 @@ class WganSamplerApp:
         stage2_pose.py:111-144), in place on `state`; state.step += 1.
         Returns (G losses, last iteration's D losses, batch 0's real
         embeddings, last iteration's fakes), one entry per critic.
+        Across ranks (`parallel.dist`) the batches and the noise are this
+        rank's rows of the global ones (the Trainer draws the global noise
+        on every rank and slices it), the optimizers average the
+        gradients, and the clip follows the averaged update, so the
+        critics stay replicated; the train steps return the global
+        metrics.
         `mark(phase)`, if given, is called after each phase of
         STAGE2_PHASES is enqueued, the last three once per iteration."""
         mark = mark or (lambda phase: None)
@@ -188,7 +195,7 @@ class Stage2AppApp(WganSamplerApp):
                    "d_loss_embs_fg": dl_fg, "d_loss_embs_bg": dl_bg,
                    "hist/embs_real_fg": real_fg, "hist/embs_fake_fg": fake_fg,
                    "hist/embs_real_bg": real_bg, "hist/embs_fake_bg": fake_bg}
-        return {k: v.detach() for k, v in metrics.items()}
+        return dist.global_metrics({k: v.detach() for k, v in metrics.items()})
 
     @torch.inference_mode()
     def preview_step(self, batch: Batch, noise: torch.Tensor) -> torch.Tensor:

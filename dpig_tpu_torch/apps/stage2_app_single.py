@@ -19,6 +19,7 @@ import torch
 from ..config import Config
 from ..models.discriminators import FCDiscriminator
 from ..models.mappers import GaussianMapper
+from ..parallel import dist
 from ..train.state import GanState
 from .common import pose_maps_from_batch, select_parts
 from .stage1_app import Stage1App
@@ -61,7 +62,8 @@ class Stage2AppSingleApp(WganSamplerApp):
         the last critic iteration's `d_loss_embs`, the two metrics JAX's
         step returns (stage2_app_single.py:133)."""
         (g_l,), (d_l,), _, _ = self.wgan_step(state, batch, noise, mark)
-        return {"g_loss_embs": g_l.detach(), "d_loss_embs": d_l.detach()}
+        return dist.global_metrics({"g_loss_embs": g_l.detach(),
+                                    "d_loss_embs": d_l.detach()})
 
     @torch.inference_mode()
     def preview_step(self, batch: Batch, noise: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ from ..config import Config
 from ..models.discriminators import FCDiscriminator
 from ..models.mappers import GaussianMapper
 from ..ops.pose import pose_rcv_normalize, render_pose_maps
+from ..parallel import dist
 from ..train.state import GanState
 from .common import select_parts
 from .stage1_app import Stage1App
@@ -66,7 +67,7 @@ class Stage2PoseApp(WganSamplerApp):
                                                           noise, mark)
         metrics = {"g_loss_embs": g_l, "d_loss_embs": d_l,
                    "hist/embs_real": real, "hist/embs_fake": fake}
-        return {k: v.detach() for k, v in metrics.items()}
+        return dist.global_metrics({k: v.detach() for k, v in metrics.items()})
 
     @torch.inference_mode()
     def sample_poses(self, noise: torch.Tensor

@@ -169,18 +169,22 @@ class _TesterBase:
                 self.mappers[name] = mapper.to(self.device).eval(
                 ).requires_grad_(False)
 
-    def cpu_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        """This tester's weights as a `params` state on the CPU (the D's
-        running statistics inside `Discriminator`), to build a twin of it
-        on another device."""
+    def nets(self) -> Dict[str, torch.nn.Module]:
+        """This tester's nets by sub-tree name."""
         s1 = self.stage1
         nets = {"Encoder": s1.encoder, "ID_AE": s1.generator, **self.mappers}
         if s1.disc is not None:
             nets["Discriminator"] = s1.disc
         if "PoseAE" in self.SUBTREES:
             nets["PoseAE"] = self.pose_ae.nets
+        return nets
+
+    def cpu_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """This tester's weights as a `params` state on the CPU (the D's
+        running statistics inside `Discriminator`), to build a twin of it
+        on another device."""
         return {name: {k: v.cpu() for k, v in net.state_dict().items()}
-                for name, net in nets.items()}
+                for name, net in self.nets().items()}
 
     def draw_noise(self, gen: torch.Generator, b: int
                    ) -> Dict[str, torch.Tensor]:

@@ -77,12 +77,35 @@ the `--interpolate_*` factor interpolation, the embedding inversion
 and the DeepFashion twins (101-104, 1001, 1002), with every `--D_arch`
 and `--remat`, on the card (`--platform=cpu` for the CPU). As in the JAX
 package, `--model` alone picks training (1-4, 101-104) or testing (11,
-12, 13, 1001, 1002). Multi-process runs (DDP) raise NotImplementedError
-naming their ROADMAP item.
+12, 13, 1001, 1002).
+
+Across processes, as the JAX package runs across hosts: one process per
+rank, each with the same flags but its --process_id (or torchrun's RANK
+and WORLD_SIZE with --process_id=-1, the default, and --num_processes
+left out or equal to WORLD_SIZE); NCCL on the card, gloo with
+--platform=cpu:
+
+    for r in 0 1; do python -m dpig_tpu_torch.main --model=1 \
+        --synthetic_data=true --batch_size=16 --num_processes=2 \
+        --process_id=$r --coordinator_address=127.0.0.1:29500 \
+        --model_dir=<s1> & done; wait
+    torchrun --nproc_per_node=2 -m dpig_tpu_torch.main --model=1 \
+        --synthetic_data=true --model_dir=<s1>
+
+--batch_size is the global batch: each rank reads batch_size / N rows
+(its loader's host share), and a train step computes what one process
+computes on the N ranks' rows together (`parallel/dist.py`). Rank 0
+writes the model_dir. Testing runs one tester per rank on its share of
+the test split, as the JAX package's testers do; each rank needs its own
+--model_dir, since their PNG names would collide.
 """
 from __future__ import annotations
 
 import contextlib
+import os
+import socket
+
+import torch.distributed as torch_dist
 
 from .apps.common import (batch_to_device, pose_maps_from_batch,
                           select_device, select_parts)
@@ -90,23 +113,34 @@ from .config import Config, get_config
 from .data.loader import TFRecordPairLoader
 from .data.synthetic import SyntheticLoader
 from .models.mappers import sample_mapper_noise
+from .parallel import dist
 
 TRAIN_MODELS = (1, 2, 3, 4, 101, 102, 103, 104)
 
 
 def make_loader(cfg: Config):
-    """Synthetic batches, or the tfrecord pairs of `cfg.data_path` (the JAX
-    package's main.py:19-36, one process: host 0 of 1): the `split` when
-    training, shuffled with `random_seed`, else the test split in file
-    order, which ends (the testers then raise StopIteration)."""
+    """This process's loader (the JAX package's main.py:21-40): synthetic
+    batches seeded with `random_seed` + the rank, or the rank's share of
+    the tfrecord pairs of `cfg.data_path` (host `rank` of `world`): the
+    `split` when training, shuffled with `random_seed`, else the test
+    split in file order, which ends (the testers then raise
+    StopIteration). Each batch holds batch_size / world rows."""
+    host_id, host_count = dist.rank(), dist.world()
+    if cfg.batch_size % host_count:
+        raise ValueError(
+            f"--batch_size={cfg.batch_size} must be divisible by the "
+            f"process count ({host_count}): a truncated per-host batch "
+            "would silently shrink the global batch and break sharding")
+    local_bs = cfg.batch_size // host_count
     if cfg.synthetic_data:
-        return SyntheticLoader(cfg.batch_size, cfg.img_H, cfg.img_W,
-                               seed=cfg.random_seed)
+        return SyntheticLoader(local_bs, cfg.img_H, cfg.img_W,
+                               seed=cfg.random_seed + host_id)
     return TFRecordPairLoader(
         cfg.data_path, cfg.split if cfg.is_train else "test",
-        cfg.batch_size, cfg.img_H, cfg.img_W, dataset=cfg.dataset,
+        local_bs, cfg.img_H, cfg.img_W, dataset=cfg.dataset,
         shuffle=cfg.is_train, seed=cfg.random_seed,
-        num_workers=cfg.num_worker, worker_mode=cfg.worker_mode)
+        num_workers=cfg.num_worker, worker_mode=cfg.worker_mode,
+        host_id=host_id, host_count=host_count)
 
 
 def train_model(cfg: Config):
@@ -220,18 +254,49 @@ def _test(cfg: Config, loader) -> str:
     raise ValueError(f"unknown test model {cfg.model}")
 
 
+def _refuse_a_shared_test_dir(cfg: Config) -> None:
+    """The JAX package's testers, one per process, name their PNGs by the
+    process's own batch index (testers.py:77-85, :407), so two processes
+    on one host writing to one model_dir overwrite each other's files.
+    Raise instead, on every rank, before anything is written."""
+    seen = [None] * dist.world()
+    torch_dist.all_gather_object(
+        seen, (socket.gethostname(), os.path.abspath(cfg.model_dir)))
+    if len(set(seen)) != len(seen):
+        raise ValueError(
+            f"{dist.world()} test processes share a --model_dir on one host "
+            f"({sorted(seen)}): each writes its share of the test split "
+            "under the same PNG names, so they would overwrite each other "
+            "(as the JAX package's processes do); give each process its "
+            "own --model_dir")
+
+
 def main(argv=None) -> None:
     cfg = get_config(argv)
-    if cfg.num_processes > 1 or cfg.coordinator_address:
-        raise NotImplementedError("multi-process runs (DDP) are not ported "
-                                  'to dpig_tpu_torch yet (ROADMAP §1, "DDP")')
-    select_device(cfg.platform)  # fail before writing anything
-    cfg.save()
-    print(f"[*] MODEL dir: {cfg.model_dir}")
-    if cfg.model in TRAIN_MODELS:
-        train_model(cfg)
-    else:
-        test_model(cfg)
+    select_device(cfg.platform)  # fail before starting anything
+    # as the JAX main.py:165 (--num_processes > 1 or an address), and
+    # torchrun's environment with --process_id=-1; else a no-op
+    started = dist.init_distributed(
+        cfg.coordinator_address, cfg.num_processes, cfg.process_id,
+        platform=cfg.platform)
+    try:
+        train = cfg.model in TRAIN_MODELS
+        if train and dist.world() > 1:  # one run: rank 0's model_dir (a
+            shared = [cfg.model_dir]    # default one carries a time stamp)
+            torch_dist.broadcast_object_list(shared, src=0)
+            cfg.model_dir = shared[0]
+        elif dist.world() > 1:
+            _refuse_a_shared_test_dir(cfg)
+        if not train or dist.rank() == 0:  # a training run's model_dir is
+            cfg.save()                     # rank 0's to write
+            print(f"[*] MODEL dir: {cfg.model_dir}")
+        if train:
+            train_model(cfg)
+        else:
+            test_model(cfg)
+    finally:
+        if started:
+            dist.shutdown()
 
 
 if __name__ == "__main__":

@@ -25,25 +25,26 @@ def _border_classes(n: int, device) -> torch.Tensor:
 
 def stem_bias_map_nhwc(kernel: torch.Tensor, bias: torch.Tensor,
                        embs: torch.Tensor, h: int, w: int,
-                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                       dtype: torch.dtype = torch.float32,
+                       sum_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
     """Contribution of the spatially constant embedding to the stem conv,
     plus the conv bias (generator.py:35-77): [B, H, W, hid] in `dtype`.
 
     kernel is OIHW [hid, D+P, 3, 3]. A 3x3 SAME conv of a constant map sees
     one of 9 tap subsets at each pixel (3 row x 3 col border classes), so
     the embedding contributes 9 per-sample vectors selected by position.
-    They are summed in float32 and rounded to `dtype`, and the bias added
-    in `dtype`, as in JAX. The int8 stem (`models/quant.py`) adds this map
-    in float32 to its s8 pose conv.
+    They are summed in float32 (`sum_dtype`) and rounded to `dtype`, and
+    the bias added in `dtype`, as in JAX. The int8 stem
+    (`models/quant.py`) adds this map in float32 to its s8 pose conv.
     """
     d = embs.shape[-1]
-    k_emb = kernel[:, :d].to(torch.float32)                  # [hid,D,3,3]
+    k_emb = kernel[:, :d].to(sum_dtype)                      # [hid,D,3,3]
     taps = {0: slice(1, 3), 1: slice(0, 3), 2: slice(0, 2)}
     t = torch.stack([
         torch.stack([k_emb[:, :, taps[r], taps[c]].sum((2, 3))
                      for c in range(3)]) for r in range(3)])  # [3,3,hid,D]
-    biases = torch.einsum("bd,rchd->brch", embs.to(torch.float32),
-                          t).to(dtype)
+    biases = torch.einsum("bd,rchd->brch", embs.to(sum_dtype), t).to(dtype)
     rows = _border_classes(h, embs.device)
     cols = _border_classes(w, embs.device)
     return biases[:, rows][:, :, cols] + bias.to(dtype)       # [B,H,W,hid]
@@ -51,7 +52,9 @@ def stem_bias_map_nhwc(kernel: torch.Tensor, bias: torch.Tensor,
 
 def _constant_input_stem(kernel: torch.Tensor, bias: torch.Tensor,
                          embs: torch.Tensor, pose: torch.Tensor,
-                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                         dtype: torch.dtype = torch.float32,
+                         sum_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
     """Stem conv of concat(tile(embs), pose) without the tiled map
     (generator.py:16-32), in `dtype`. pose is NCHW [B,P,H,W]; returns
     NCHW."""
@@ -59,7 +62,7 @@ def _constant_input_stem(kernel: torch.Tensor, bias: torch.Tensor,
     pose_part = conv2d_same(pose.to(dtype), kernel[:, d:].to(dtype), None)
     return pose_part + stem_bias_map_nhwc(
         kernel, bias, embs, pose.shape[2], pose.shape[3],
-        dtype).permute(0, 3, 1, 2)
+        dtype, sum_dtype).permute(0, 3, 1, 2)
 
 
 class UAEGenerator(nn.Module):
@@ -84,6 +87,7 @@ class UAEGenerator(nn.Module):
         self.hidden_num = hidden_num
         self.activation = activation
         self.dtype = dtype
+        self.stem_sum_dtype = torch.float32  # float64 in a float64 check
         self.stem_kernel = nn.Parameter(
             torch.empty(hidden_num, emb_dim + pose_ch, 3, 3))
         self.stem_bias = nn.Parameter(torch.empty(hidden_num))
@@ -115,7 +119,8 @@ class UAEGenerator(nn.Module):
         """embs [B, D], pose [B, H, W, P] (NHWC) -> (out [B, H, W, 3], z)."""
         act = self.activation
         x = act(_constant_input_stem(self.stem_kernel, self.stem_bias, embs,
-                                     pose.permute(0, 3, 1, 2), self.dtype))
+                                     pose.permute(0, 3, 1, 2), self.dtype,
+                                     self.stem_sum_dtype))
         x, skips = self.ConvBlockTower_0(x)
         b = x.shape[0]
         z = self.bottleneck(flatten_nhwc(x))

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import dist
+
 XAVIER = "xavier"
 D_INIT = "normal_0.02"
 
@@ -121,7 +123,15 @@ class BatchNorm(nn.Module):
     biased one, max(mean(x^2) - mean(x)^2, 0). (`F.batch_norm` with
     buffers would store the unbiased variance.) `train=False` uses the
     buffers. Statistics and the normalization are float32 whatever the
-    input; the output is rounded to `dtype`."""
+    input; the output is rounded to `dtype`.
+
+    In a train step across ranks (`parallel.dist.global_batch_stats`,
+    world > 1) the statistics are the global batch's, as flax's BatchNorm
+    computes them on a batch sharded over a mesh: the per-channel sums of
+    x and x^2 and the count, all-reduced differentiably, give the mean and
+    flax's fast variance, which normalize the rank's rows and, with
+    `update_stats`, move the running buffers. At world 1 nothing
+    changes."""
 
     MOMENTUM = 0.9
 
@@ -139,6 +149,10 @@ class BatchNorm(nn.Module):
     def _update_stats(self, x: torch.Tensor) -> None:
         mean = x.mean((0, 2, 3))
         var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+        self._move_stats(mean, var)
+
+    @torch.no_grad()
+    def _move_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         m = self.MOMENTUM
         self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
@@ -147,7 +161,9 @@ class BatchNorm(nn.Module):
                 update_stats: bool = False) -> torch.Tensor:
         # statistics in float32 (float64 for a float64 check run)
         x = x.to(torch.promote_types(x.dtype, torch.float32))
-        if train:
+        if train and dist.batch_stats_are_global():
+            y = self._global_batch_norm(x, update_stats)
+        elif train:
             if update_stats:
                 self._update_stats(x)
             y = F.batch_norm(x, None, None, self.weight, self.bias,
@@ -157,6 +173,20 @@ class BatchNorm(nn.Module):
                              self.weight, self.bias, training=False,
                              eps=self.eps)
         return y.to(self.dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor,
+                           update_stats: bool) -> torch.Tensor:
+        c = x.shape[1]
+        count = x.new_full((1,), float(x.numel() // c))
+        sums = dist.all_reduce_sum(torch.cat(
+            [x.sum((0, 2, 3)), (x * x).sum((0, 2, 3)), count]))
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+        if update_stats:
+            self._move_stats(mean.detach(), var.detach())
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])
 
 
 def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:

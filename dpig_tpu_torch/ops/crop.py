@@ -11,7 +11,8 @@ Plain PyTorch gathers: the JAX package's matmul form exists to avoid TPU
 gather stalls and computes the same values. As there, the interpolation
 runs in float32 whatever the feature map's dtype, and the crops come back
 in that dtype (`dpig_tpu/ops/crop.py:168,199`: a bfloat16 map is promoted
-by the float32 weights and the result cast back).
+by the float32 weights and the result cast back); a float64 map (the
+float64 check of `train/parity.py`) stays float64.
 """
 from __future__ import annotations
 
@@ -26,6 +27,10 @@ def _axis_coords(lo: torch.Tensor, hi: torch.Tensor, size: int,
         return lo[:, None] * (size - 1) + i[None, :] * (
             (hi - lo)[:, None] * (size - 1) / (crop_size - 1))
     return 0.5 * (lo + hi)[:, None] * (size - 1)
+
+
+def _interp_dtype(feat: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(feat.dtype, torch.float32)
 
 
 def _crop(feat: torch.Tensor, batch_idx: torch.Tensor, boxes: torch.Tensor,
@@ -70,7 +75,7 @@ def crop_and_resize(feat: torch.Tensor, boxes: torch.Tensor, crop_h: int,
     """feat [B,H,W,C], boxes [B,4] normalized (y1,x1,y2,x2), box i crops
     image i -> [B, crop_h, crop_w, C]."""
     idx = torch.arange(feat.shape[0], device=feat.device)
-    return _crop(feat.to(torch.float32), idx, boxes, crop_h,
+    return _crop(feat.to(_interp_dtype(feat)), idx, boxes, crop_h,
                  crop_w).to(feat.dtype)
 
 
@@ -85,5 +90,5 @@ def crop_body_rois(feat: torch.Tensor, part_bbox: torch.Tensor,
     boxes = part_bbox.to(torch.float32) / norm                  # [B,P,4]
     boxes = boxes.transpose(0, 1).reshape(p * b, 4)
     idx = torch.arange(b, device=feat.device).repeat(p)
-    return _crop(feat.to(torch.float32), idx, boxes, roi_size,
+    return _crop(feat.to(_interp_dtype(feat)), idx, boxes, roi_size,
                  roi_size).to(feat.dtype)

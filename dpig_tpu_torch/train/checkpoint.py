@@ -31,6 +31,7 @@ from typing import Dict, Iterable, Mapping, Optional
 import torch
 from torch import nn
 
+from ..parallel import dist
 from .state import GanState
 
 STATE_FILE = "state.pt"
@@ -79,8 +80,14 @@ def save_tree(model_dir: str, step: int, tree: Dict) -> str:
 
 
 def save_checkpoint(model_dir: str, step: int, state: GanState) -> str:
-    """Write `state` under ckpt/step_<step>; returns the directory."""
-    return save_tree(model_dir, step, state_tree(state))
+    """Write `state` under ckpt/step_<step>; returns the directory. Across
+    ranks rank 0 writes it, once, as orbax writes once across the JAX
+    package's hosts, and every rank returns after it is written."""
+    path = _ckpt_dir(model_dir, step)
+    if dist.rank() == 0:
+        save_tree(model_dir, step, state_tree(state))
+    dist.barrier()
+    return path
 
 
 def latest_checkpoint(model_dir: str) -> Optional[str]:

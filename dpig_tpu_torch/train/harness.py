@@ -6,8 +6,15 @@ optimizers (`train/state.py`).
 Observability: metrics go to `<model_dir>/metrics.jsonl` and stdout, the
 `hist/` embedding arrays of the Stage-II samplers as their mean and
 standard deviation (harness.py:71-82), previews to PNG grids with the mean
-SSIM in the file name (trainer.py:522-524). Not ported yet: TensorBoard
-events and the device mesh (one card per run).
+SSIM in the file name (trainer.py:522-524). Not ported: TensorBoard
+events.
+
+Across processes (`parallel.dist`) every rank runs the same loop on its
+own loader's batches (its rows of the global batch) and its rows of the
+global step noise; the steps return the global metrics. Rank 0 alone
+writes metrics.jsonl, the previews and the checkpoints; every rank runs
+the previews' forwards, so the noise generator stays the same on every
+rank.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from ..apps.common import batch_to_device
 from ..config import Config
 from ..eval.metrics import ssim_images
 from ..ops.pose import render_pose_maps
+from ..parallel import dist
 from ..utils.viz import pose_to_gray, save_image
 from . import checkpoint as ckpt
 from .state import GanState
@@ -47,16 +55,24 @@ class Trainer:
 
     # ------------------------------------------------------------- state
     def init_state(self) -> GanState:
+        """The app's state, restored from --ckpt_path or auto-resumed from
+        the newest checkpoint in model_dir. Across ranks every rank
+        restores, the ranks must agree on the step, and rank 0's
+        parameters, buffers and optimizer moments are given to all."""
         state = self.app.init_state()
         if self.cfg.ckpt_path:
-            return ckpt.restore_into_state(self.cfg.ckpt_path, state)
-        # Preemption-safe auto-resume from the newest checkpoint in
-        # model_dir (the reference needs --ckpt_path + --start_step).
-        latest = ckpt.latest_checkpoint(self.cfg.model_dir)
-        if latest:
-            state = ckpt.restore_into_state(latest, state)
-            print(f"[*] auto-resumed from {latest} (step {state.step})",
-                  flush=True)
+            state = ckpt.restore_into_state(self.cfg.ckpt_path, state)
+        else:
+            # Preemption-safe auto-resume from the newest checkpoint in
+            # model_dir (the reference needs --ckpt_path + --start_step).
+            latest = ckpt.latest_checkpoint(self.cfg.model_dir)
+            if latest:
+                state = ckpt.restore_into_state(latest, state)
+                if dist.rank() == 0:
+                    print(f"[*] auto-resumed from {latest} (step "
+                          f"{state.step})", flush=True)
+        dist.same_on_all_ranks(state.step, "the step to resume from")
+        dist.replicate(state.tensors())
         return state
 
     # --------------------------------------------------------------- log
@@ -64,6 +80,8 @@ class Trainer:
                     hists: Optional[Dict[str, np.ndarray]] = None) -> None:
         """Scalars, and each array of `hists` as `<name>_mean` /
         `<name>_std` (float64, as the JAX package)."""
+        if dist.rank() != 0:
+            return
         rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
         for name, arr in (hists or {}).items():
             flat = np.asarray(arr, np.float64).ravel()
@@ -126,14 +144,17 @@ class Trainer:
         batch = tuple(batch_to_device(next(self.loader), app.device)
                       for _ in range(n))
         args = (batch if n > 1 else batch[0],)
-        if hasattr(app, "step_noise"):
-            args += (app.step_noise(self.noise_gen, self.cfg.batch_size),)
+        if hasattr(app, "step_noise"):  # this rank's rows of the global draw
+            args += (dist.local_rows(app.step_noise(
+                self.noise_gen, self.cfg.batch_size), dim=1),)
         return app.train_step(state, *args)
 
     # ------------------------------------------------------- previews
     def _save_fixed_previews(self, batch: Dict[str, np.ndarray]) -> None:
         """x, x_target, mask and the pose map (rendered on the app's
-        device) of the fixed preview batch."""
+        device) of the fixed preview batch; rank 0's."""
+        if dist.rank() != 0:
+            return
         cfg, d = self.cfg, self.cfg.model_dir
         save_image((batch["x"] + 1.0) * 127.5, f"{d}/x_fixed.png")
         save_image((batch["x_target"] + 1.0) * 127.5,
@@ -146,9 +167,12 @@ class Trainer:
         save_image(batch["mask_r6"] * 255.0, f"{d}/mask_fixed.png")
 
     def preview_with_ssim(self, images_0_255: np.ndarray,
-                          x_ref: np.ndarray, step: int, tag: str = "G") -> str:
+                          x_ref: np.ndarray, step: int,
+                          tag: str = "G") -> Optional[str]:
         """Save a preview grid with the mean grayscale SSIM against x in
-        the filename."""
+        the filename (rank 0; the others return None)."""
+        if dist.rank() != 0:
+            return None
         ssim_mean = float(np.mean(ssim_images(
             images_0_255, (x_ref + 1.0) * 127.5)))
         path = os.path.join(self.cfg.model_dir,

@@ -60,16 +60,17 @@ def recorded_train_step(app, batch, step_fn: Optional[Callable] = None,
     side computes), and the D step would otherwise see that noise in its
     fakes. `d_clipped` does the same for the D parameters after each
     critic iteration's clip, so each iteration starts where the other
-    record's did."""
+    record's did. Across ranks, the gradients recorded are the averaged
+    ones each update applies (`_Optimizer.apply`)."""
     state = app.init_state()
     grads: Dict[str, torch.Tensor] = {}
     after: Dict[str, torch.Tensor] = {}
     clipped: List[Dict[str, torch.Tensor]] = []
     for opt in (state.g_opt, state.d_opt):
-        def recording(g, opt=opt, step=opt.step):
+        def recording(g, opt=opt, apply=opt.apply):
             grads.update(_to_cpu(zip(opt.params, g)))
-            step(g)
-        opt.step = recording
+            apply(g)
+        opt.apply = recording
 
     def sync(params: Dict[str, torch.Tensor], to) -> None:
         with torch.no_grad():
@@ -87,8 +88,12 @@ def recorded_train_step(app, batch, step_fn: Optional[Callable] = None,
                 sync(state.d_opt.params, d_clipped[len(clipped) - 1])
 
     args = () if noise is None else (noise.to(app.device),)
-    out = (step_fn or type(app).train_step)(
-        app, state, _device_batch(batch, app.device), *args, mark=mark)
+    try:
+        out = (step_fn or type(app).train_step)(
+            app, state, _device_batch(batch, app.device), *args, mark=mark)
+    finally:  # later steps of the returned state are not recorded
+        for opt in (state.g_opt, state.d_opt):
+            del opt.apply
     if not after:
         raise RuntimeError("the step never marked the end of its G update")
     stats = {f"{k}/{n}": t.detach().to("cpu", copy=True)
@@ -129,3 +134,22 @@ def step_errors(ref: StepRecord, got: StepRecord) -> Dict[str, float]:
     for k, v in ref.arrays.items():
         errs[k] = float((got.arrays[k] - v).abs().max())
     return errs
+
+
+def to_float64(app, stem: bool = False, outputs: bool = False):
+    """A Stage1App's nets with their parameters and their layers' compute
+    dtype (models/layers.py) in float64, the yardstick of what float32
+    approximates. The generator's embedding-stem sum
+    (models/generator.py) stays float32 unless `stem`, and the nets'
+    outputs, the embeddings, g_raw and the D logits, with the losses
+    computed from them, unless `outputs`."""
+    if stem:
+        app.generator.stem_sum_dtype = torch.float64
+    if outputs:
+        app.out_dtype = torch.float64
+    for net in (app.encoder, app.generator, app.disc):
+        net.to(torch.float64)
+        for m in net.modules():
+            if isinstance(getattr(m, "dtype", None), torch.dtype):
+                m.dtype = torch.float64
+    return app

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel import dist
+
 
 def halving_schedule(base_lr: float, interval: int) -> Callable[[int], float]:
     """count -> float32(base_lr) * 0.5^(count // interval)."""
@@ -58,11 +60,18 @@ class _Optimizer:
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        """Update the parameters, in `params` order, by `grads`."""
+        """Update the parameters, in `params` order, by `grads` averaged
+        over the ranks of the process group, if there is one (the
+        gradient all-reduce XLA inserts under the JAX package's mesh)."""
         grads = list(grads)
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for "
                              f"{len(self.params)} parameters")
+        self.apply(dist.average_gradients(grads))
+
+    @torch.no_grad()
+    def apply(self, grads: List[torch.Tensor]) -> None:
+        """The update proper, by gradients every rank already shares."""
         update = self._direction(grads)
         torch._foreach_mul_(update, -self.lr(self.count))
         torch._foreach_add_(list(self.params.values()), update)
@@ -204,3 +213,14 @@ class GanState:
     @property
     def d_params(self) -> List[torch.Tensor]:
         return list(self.d_opt.params.values()) if self.d_opt else []
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the state: the nets' parameters and buffers and
+        the optimizers' moments."""
+        nets = [*self.g_nets.values(), *(self.d_nets or {}).values(),
+                *self.frozen_nets.values()]
+        out = [t for m in nets for t in (*m.parameters(), *m.buffers())]
+        for opt in (self.g_opt, self.d_opt):
+            if opt is not None:
+                out += [t for v in opt.moments.values() for t in v.values()]
+        return out

@@ -852,3 +852,77 @@ def test_df256_testers_on_the_card_match_the_cpu(card, tmp_path, model, kw):
     gap = (out["cpu"][0] - flt).abs()
     assert float(diff.max()) <= float(gap.max())
     assert float(diff.mean()) <= float(gap.mean())
+
+
+# ------------------------------------------------------------------ DDP
+# Two ranks of 4 rows against world 1 on 8, the whole step in float64 (the
+# embedding-stem sum, the nets' outputs and the ROI crop too): the card
+# read at most 2.6e-15 on these keys; per-rank BatchNorm 1.6e-3 and up.
+DDP_FLOAT64_TOL = {"g_step_losses": 1e-12, "d_loss": 1e-12, "Encoder": 1e-12,
+                   "ID_AE": 1e-12, "Discriminator": 1e-12, "d_stats": 1e-12}
+
+
+def test_nccl_world_1_step_is_the_plain_step(card, tmp_path):
+    """One small-config model-1 step as rank 0 of a one-rank NCCL group
+    (the gradient and metric all-reduces run; BatchNorm takes no
+    collective at world 1) equals the same step without a group, bit for
+    bit: metrics, gradients and the D's statistics. Both run with the
+    deterministic algorithms (`ranks.deterministic`): with the default
+    ones two runs of one step differ by ~1e-7 (atomics in the ROI crop's
+    backward and in cuDNN's)."""
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.parallel import dist, ranks
+    batch = next(SyntheticLoader(4, 32, 16, seed=3))
+    cfg = Config(model_dir=str(tmp_path), **SMALL)
+    with ranks.deterministic():
+        plain = recorded_train_step(Stage1App(cfg, card), batch)
+        assert dist.init_distributed(f"127.0.0.1:{dist.free_port()}", 1, 0)
+        try:
+            assert torch.distributed.get_backend() == "nccl"
+            grouped = recorded_train_step(Stage1App(cfg, dist.rank_device()),
+                                          batch, g_updated=plain.g_updated)
+        finally:
+            dist.shutdown()
+    assert grouped.metrics == plain.metrics
+    for k, v in plain.grads.items():
+        assert torch.equal(grouped.grads[k], v), k
+    for k, v in plain.d_stats.items():
+        assert torch.equal(grouped.d_stats[k], v), k
+
+
+def test_two_ranks_on_one_card_match_world_1(card, tmp_path):
+    """Two gloo ranks sharing the card (asked for by argument: NCCL
+    refuses two ranks on one device), 4 rows each, against the world-1
+    step on the 8 rows on the card, the whole step in float64 (the
+    embedding-stem sum too): within DDP_FLOAT64_TOL; both ranks' metrics
+    equal; one pose launch per rank. The same step with each rank's own
+    BatchNorm statistics breaks a limit. In float32 cuDNN picks its
+    algorithms by batch size, and the two sides differ by that (PERF.md
+    §6, data parallelism)."""
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.parallel import ranks
+    from dpig_tpu_torch.train.parity import to_float64
+    batch = next(SyntheticLoader(8, 32, 16, seed=4))
+    cfg = Config(model_dir=str(tmp_path), **{**SMALL, "batch_size": 8})
+    app = Stage1App(cfg, card)
+    params = {name: {k: v.cpu().clone() for k, v in m.state_dict().items()}
+              for name, m in (("Encoder", app.encoder),
+                              ("ID_AE", app.generator),
+                              ("Discriminator", app.disc))}
+    one = recorded_train_step(to_float64(app, stem=True, outputs=True),
+                              batch)
+    job = {"cfg": dict(SMALL, batch_size=8, model_dir=str(tmp_path)),
+           "params": params, "batch": batch, "g_updated": one.g_updated,
+           "float64": True, "stem64": True, "outputs64": True}
+    outs, local_bn = ranks.run_many(
+        [("stage1", job), ("stage1", dict(job, local_bn=True))], n=2,
+        platform="", backend="gloo", timeout=300)
+    assert outs[0]["metrics"] == outs[1]["metrics"]
+    for o, control in zip(outs, local_bn):
+        errs = step_errors(one, ranks.as_record(o))
+        print(f"two ranks on one card vs world 1: {errs}")
+        assert all(errs[k] <= t for k, t in DDP_FLOAT64_TOL.items()), errs
+        assert o["pose_launches"] == 1
+        errs = step_errors(one, ranks.as_record(control))
+        print(f"control, per-rank BatchNorm: {errs}")
+        assert any(errs[k] > t for k, t in DDP_FLOAT64_TOL.items()), errs
