@@ -215,16 +215,39 @@ Phases, each printing one line; any failure exits non-zero:
               int8-vs-float32 gap; the s8 conv on every shape of a batch
               of 8 bit-equal to its plain version on both kernels (and the
               pose kernel at B=8 in phase 3).
+22. score    `python -m dpig_tpu_torch.eval.score 1 <phase 4's model_dir>
+              test_result` and `--mask` on the card (the IS-skipped
+              line), then `score_stage1` on the card and on the CPU:
+              every value within SCORE_TOL, score.txt / score_mask.txt
+              equal; images scored per second on each.
+23. quality  the int8 gate (`python -m dpig_tpu_torch.eval.int8_quality`)
+              at full width: Market `train` QUALITY_STEPS at bs64
+              (bfloat16, fast D step; ms per step, images/s), `check`,
+              `check --transfer`, `check --per_layer`, `sweep` (all six
+              rows) and `gate` (exit code as its verdict line); then
+              `--size=256`: `train` QUALITY_256_STEPS at bs16, `check`,
+              `sweep`, `gate`; each path's s8 launches per route and pose
+              launches as `_gate_launches` counts them; the s8 conv on
+              every call of one gate batch (Market 64 with --transfer) as
+              in phase 14; at 256 the gate batch of 16 makes phase 16's
+              model-1001 calls, shape for shape: each is checked
+              bit-equal on both routes, and its times are [df256 s8]'s;
+              `check` at batch 2 on the card and on the CPU from one
+              checkpoint, its four SSIM numbers within half the CPU's
+              int8-vs-float SSIM gap.
 
 The line before the last is {"kernels": [...]}: the pose kernel with its
 launches on each path, and the s8 conv's two routes, each with its
 launches on the int8 paths and its times summed over its calls of one
 int8 model-12 batch, under "df256" over one int8 model-1001 batch at
-256x256 and under "ddp batch 8" over one rank's int8 model-12 batch of 8;
-the last line is {"ok": true, "device": {...}}.
+256x256, under "ddp batch 8" over one rank's int8 model-12 batch of 8
+and under "gate Market batch 64" over one int8 gate batch of 64 (the
+256 gate batch makes the "df256" calls); the last line is {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import io
@@ -250,7 +273,8 @@ RASTER_OPS_PER_ELEMENT, RASTER_OPS_PER_SPAN = 3, 20
 MARKET = dict(b=16, h=128, w=64, k=18)
 RASTER_SHAPES = {"Market": MARKET, "256x256": dict(b=16, h=256, w=256, k=18),
                  "256x256 B=6": dict(b=6, h=256, w=256, k=18),
-                 "Market B=8": dict(MARKET, b=8)}  # a rank's rows, [ddp]
+                 "Market B=8": dict(MARKET, b=8),  # a rank's rows, [ddp]
+                 "Market B=64": dict(MARKET, b=64)}  # the int8 gate's batch
 # Card vs CPU limit on max |diff| of g_raw and of the D score, batch 2 at
 # full width. Both sides float32; cuDNN and the CPU's conv kernels sum in
 # other orders through ~50 conv layers. On an NVIDIA H100 80GB HBM3 at
@@ -1808,18 +1832,40 @@ def phase_s8_conv():
 
 
 def _s8_table(tester, batch, tag, per, reps=25, inner=20):
-    """Every s8 conv call of one `transfer_step` of the calibrated int8
-    `tester` on the device `batch`, grouped by shape: each bit-equal to
-    the plain version on its route and on mma_sync, with the times of
-    both kernels, the plain version, cuDNN's bf16 conv and
-    `torch._int_mm`, the bound and its share, printed under `tag` ->
+    """`_s8_calls_table` of the s8 conv calls of one `transfer_step` of
+    the calibrated int8 `tester` on the device `batch`."""
+    return _s8_calls_table(
+        _record_s8_calls(lambda: tester.transfer_step(batch)), tag, per,
+        reps, inner)
+
+
+def _s8_differing(c):
+    """One recorded s8 conv call on the route `plan` picks and on mma_sync
+    against the plain version -> ({route: elements that differ}, max
+    |diff|)."""
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    how = sc.plan(tuple(c["x8"].shape), tuple(c["w8"].shape), c["stride"])
+    want = sc.s8_conv_plain(**c)
+    differ, err = {}, 0.0
+    for route in {how.route, "mma_sync"}:
+        got = sc.s8_conv_cuda(**c, route=route)
+        torch.cuda.synchronize()
+        differ[route] = int((got != want).sum())
+        err = max(err, float((got.float() - want.float()).abs().max()))
+    return differ, err
+
+
+def _s8_calls_table(calls, tag, per, reps=25, inner=20):
+    """The recorded s8 conv `calls` of one int8 batch, grouped by shape:
+    each bit-equal to the plain version on its route and on mma_sync,
+    with the times of both kernels, the plain version, cuDNN's bf16 conv
+    and `torch._int_mm`, the bound and its share, printed under `tag` ->
     (the two routes' entries summed per batch, the number of calls).
     `reps` / `inner` set the CUDA-graph timing of the kernels and the
     yardsticks."""
     from dpig_tpu_torch.kernels import s8_conv as sc
     from dpig_tpu_torch.models.layers import conv2d_same
 
-    calls = _record_s8_calls(lambda: tester.transfer_step(batch))
     shapes = {}
     for c in calls:
         shapes.setdefault(_s8_key(c), []).append(c)
@@ -1828,14 +1874,7 @@ def _s8_table(tester, batch, tag, per, reps=25, inner=20):
         c = group[0]
         stride = c["stride"]
         how = sc.plan(tuple(c["x8"].shape), tuple(c["w8"].shape), stride)
-        want = sc.s8_conv_plain(**c)
-        differ, err = {}, 0.0
-        for route in {how.route, "mma_sync"}:
-            got = sc.s8_conv_cuda(**c, route=route)
-            torch.cuda.synchronize()
-            differ[route] = int((got != want).sum())
-            err = max(err, float((got.float() - want.float()).abs().max()))
-        del got, want
+        differ, err = _s8_differing(c)
         worst = max(worst, *differ.values())
         timed = functools.partial(_graph_ms, reps=reps, inner=inner)
         ms = timed(lambda: sc.s8_conv_cuda(**c))
@@ -1890,19 +1929,32 @@ def _s8_table(tester, batch, tag, per, reps=25, inner=20):
     return entries, len(calls)
 
 
-def _run_cli_s8(argv):
-    """`_run_cli` with the s8 conv's launch counts (total and per route)
-    also set to 0 just before and read just after; stdout kept -> (pose
-    launches, s8 launches, s8 launches by route, wall s, stdout)."""
+def _counted(fn):
+    """fn() with the pose kernel's and the s8 conv's launch counts set to
+    0 just before and read just after; stdout kept -> (result, pose
+    launches, s8 launches by route, wall s, stdout)."""
+    from dpig_tpu_torch.kernels import pose_raster
     from dpig_tpu_torch.kernels import s8_conv as sc
-    sc.launches = 0
+    pose_raster.launches = sc.launches = 0
     sc.launches_by_route.update(dict.fromkeys(sc.ROUTES, 0))
     out = io.StringIO()
+    t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        pose, wall = _run_cli(argv)
-    text = out.getvalue()
-    sys.stdout.write(text)
-    return pose, sc.launches, dict(sc.launches_by_route), wall, text
+        result = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sys.stdout.write(out.getvalue())
+    return (result, pose_raster.launches, dict(sc.launches_by_route), wall,
+            out.getvalue())
+
+
+def _run_cli_s8(argv):
+    """`dpig_tpu_torch.main.main(argv)` under `_counted` -> (pose
+    launches, s8 launches, s8 launches by route, wall s, stdout)."""
+    from dpig_tpu_torch import main as port_main
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    _, pose, by_route, wall, text = _counted(lambda: port_main.main(argv))
+    return pose, sc.launches, by_route, wall, text
 
 
 def _selfcheck(text):
@@ -3231,6 +3283,227 @@ def phase_ddp(tmp):
     return pose_by_path, s8_by_path, entries
 
 
+# ------------------------------------------------ scoring and the int8 gate
+# Card vs CPU limit on every value `eval/score.py` reports: both sides
+# score in float64, the card's window sums and means in other orders.
+SCORE_TOL = 1e-9
+# The gate at full width: Market train steps (bs64, bfloat16, fast D
+# step) and its pool, the 256 ones (bs16); check/sweep/gate score
+# QUALITY_BATCHES - 1 held-out batches after the calibration one.
+QUALITY_STEPS, QUALITY_POOL = 20, 8
+QUALITY_256_STEPS, QUALITY_256_POOL = 4, 4
+QUALITY_BATCHES = 4
+GATE_KEYS = ("ssim_int8_float", "ssim_to_target_float",
+             "ssim_to_target_int8", "delta")
+
+
+def phase_score(model_dir):
+    """`python -m dpig_tpu_torch.eval.score 1 <model_dir> test_result`
+    (and `--mask`) on phase 4's model-12 tree at full Market width, on the
+    card; the same on the CPU: every value within SCORE_TOL and the
+    score.txt / score_mask.txt texts equal; images scored per second."""
+    from dpig_tpu_torch.eval import score
+    root = os.path.join(model_dir, "test_result")
+    for masked in (False, True):
+        flags = ["--mask"] if masked else []
+        name = "score_mask.txt" if masked else "score.txt"
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            score.main(["1", model_dir, "test_result", *flags])
+        wall = time.perf_counter() - t0
+        with open(os.path.join(root, name)) as f:
+            card_txt = f.read()
+        if out.getvalue().splitlines()[0] != score.IS_SKIPPED:
+            raise AssertionError("[score] no IS-skipped line")
+        with contextlib.redirect_stdout(io.StringIO()):
+            card = score.score_stage1(model_dir, "test_result", masked)
+            cpu = score.score_stage1(model_dir, "test_result", masked,
+                                     platform="cpu")
+        with open(os.path.join(root, name)) as f:
+            cpu_txt = f.read()
+        g, _ = score._load_dir(os.path.join(root, "G"))
+        x, _ = score._load_dir(os.path.join(root, "x_target"))
+        m = score._load_dir(os.path.join(root, "mask"))[0] if masked \
+            else None
+        rates = {}
+        for dev in ("cuda", "cpu"):
+            score.per_image(g, x, m, torch.device(dev))  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            score.per_image(g, x, m, torch.device(dev))
+            torch.cuda.synchronize()
+            rates[dev] = len(g) / (time.perf_counter() - t0)
+        err = max(abs(card[k] - cpu[k]) for k in card)
+        print(f"[score] stage 1{' --mask' if masked else ''} on the model-12 "
+              f"tree ({len(g)} pairs at 128x64): {card_txt.strip()!r}; card "
+              f"vs CPU max|diff| {err:.3e} (limit {SCORE_TOL}), texts equal "
+              f"{card_txt == cpu_txt}; the CLI on the card {wall:.2f} s "
+              f"wall (PIL reads included); scoring alone {rates['cuda']:.0f} "
+              f"images/s on the card, {rates['cpu']:.0f} on the CPU",
+              flush=True)
+        if not err <= SCORE_TOL or card_txt != cpu_txt:
+            raise AssertionError("[score] card and CPU disagree")
+
+
+def _gate_launches(kind, steps=0):
+    """(s8 launches, of them on mma_sync, pose launches) one gate path
+    must make, with QUALITY_BATCHES held-out batches: the first calibrates
+    (the float stats forward: no s8), each other one renders its pose and
+    runs the int8 generator (G convs, 2 on mma_sync: the stem and
+    to_rgb); --transfer adds the int8 encoder (E convs, all wgmma) on
+    every batch; --per_layer runs the legacy graph (no s8 stem: G - 1
+    convs, to_rgb on mma_sync) once whole and once without each of the G
+    table layers; the sweep's tail fallbacks leave 3 layers out (to_rgb
+    among them), the legacy one running the rest without the stem."""
+    g, e, n = S8_GENERATOR_CONVS, S8_ENCODER_CONVS, QUALITY_BATCHES - 1
+    legacy = g - 1
+    return {"train": (0, 0, steps),
+            "check": (n * g, 2 * n, n + 1),
+            "check --transfer": (e + n * (e + g), 2 * n, n + 1),
+            "check --per_layer": (n * g + 2 * legacy + (g - 1) * (legacy - 1),
+                                  2 * n + g, n + 2),
+            "sweep": (4 * n * g + n * (legacy - 3) + n * (g - 3),
+                      8 * n + n, 6 * (n + 1)),
+            "gate": (n * g, 2 * n, n + 1)}[kind]
+
+
+def phase_quality(tmp, df_entries):
+    """The int8 gate (`python -m dpig_tpu_torch.eval.int8_quality`) at full
+    width: Market train / check / --transfer / --per_layer / sweep / gate,
+    then --size=256 train / check / sweep / gate, each path's launches;
+    the s8 conv on every call of one gate batch at both sizes bit-equal,
+    the Market batch's timed, the 256 batch's held to the shapes of
+    `df_entries` ([df256 s8]'s, timed there); card vs CPU check at batch
+    2 -> (pose launches by path, s8 launches by path, the s8 entries of
+    the Market batch)."""
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.eval import int8_quality as pq
+
+    step, times = Stage1App.train_step, []
+
+    def timed_step(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = step(self, *args, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    pose_by_path, s8_by_path, results = {}, {}, {}
+    sizes = {"Market": ([], os.path.join(tmp, "gate"), QUALITY_STEPS,
+                        QUALITY_POOL, 64),
+             "256": (["--size=256"], os.path.join(tmp, "gate256"),
+                     QUALITY_256_STEPS, QUALITY_256_POOL, 16)}
+    for size, (flags, mdir, steps, pool, bs) in sizes.items():
+        overrides = dict(pq.DF256) if flags else {}
+        runs = {"train": lambda: pq.main(["train", str(steps), mdir,
+                                          f"--pool={pool}", *flags]),
+                "check": lambda: pq.main(["check", mdir, *flags])}
+        if not flags:
+            runs["check --transfer"] = lambda: pq.main(
+                ["check", mdir, "--transfer"])
+            runs["check --per_layer"] = lambda: pq.main(
+                ["check", mdir, "--per_layer"])
+        runs["sweep"] = lambda: pq.sweep(mdir, cfg_overrides=overrides)
+        runs["gate"] = lambda: pq.main(["gate", mdir, *flags])
+        for kind, run in runs.items():
+            times.clear()
+            Stage1App.train_step = timed_step
+            try:
+                result, pose, s8, wall, text = _counted(run)
+            finally:
+                Stage1App.train_step = step
+            path = f"[quality] {size} {kind}"
+            want_s8, want_mma, want_pose = _gate_launches(kind, steps)
+            got = (sum(s8.values()), s8["mma_sync"], pose)
+            print(f"{path}: {wall:.1f} s wall; s8 conv launches {s8} "
+                  f"(expected {want_s8}, {want_mma} on mma_sync), pose "
+                  f"kernel launches {pose} (expected {want_pose})",
+                  flush=True)
+            if got != (want_s8, want_mma, want_pose):
+                raise AssertionError(f"{path}: launches {got}")
+            pose_by_path[path], s8_by_path[path] = pose, s8
+            if kind == "train":
+                ms = statistics.median(times[1:]) * 1e3
+                print(f"{path}: {steps} steps of {bs}, "
+                      f"{ms:.2f} ms per step after the first (median; first "
+                      f"{times[0] * 1e3:.1f}), {bs / ms * 1e3:.1f} images/s",
+                      flush=True)
+            elif kind == "sweep":
+                if tuple(result) != ("absmax", "percentile 99.9",
+                                     "per-channel (default)",
+                                     "tail-fallback (legacy)",
+                                     "tail-fallback (island)", "entropy"):
+                    raise AssertionError(f"{path}: rows {list(result)}")
+                results[size, kind] = result
+            elif kind == "gate":
+                verdict = "[PASS]" in text
+                if verdict != (result == 0) or ("[FAIL]" in text) == verdict:
+                    raise AssertionError(f"{path}: exit code {result}, "
+                                         f"verdict line {verdict}")
+                results[size, kind] = verdict
+        print(f"[quality] {size} gate verdict on {steps}-step weights: "
+              f"{'PASS' if results[size, 'gate'] else 'FAIL'}", flush=True)
+
+    # every s8 shape of one gate batch: Market bs64 with --transfer (the
+    # first E calls are the calibration batch's encoder pass), bit-equal
+    # and timed
+    mdir = sizes["Market"][1]
+    with contextlib.redirect_stdout(io.StringIO()):
+        calls = _record_s8_calls(lambda: pq.check(mdir, n_batches=2,
+                                                  transfer=True))
+    entries, n_calls = _s8_calls_table(
+        calls[S8_ENCODER_CONVS:], "[quality s8] Market",
+        "one int8 gate batch of 64 (--transfer: encoder and generator)",
+        reps=5, inner=3)
+    del calls
+    if n_calls != S8_GENERATOR_CONVS + S8_ENCODER_CONVS:
+        raise AssertionError(f"[quality s8] Market: {n_calls} calls")
+    # 256 at bs16: the calls of phase 16's model-1001 batch, shape for
+    # shape (timed there); each checked bit-equal here on both routes
+    with contextlib.redirect_stdout(io.StringIO()):
+        calls = _record_s8_calls(lambda: pq.check(
+            sizes["256"][1], n_batches=2, cfg_overrides=dict(pq.DF256)))
+    keys = collections.Counter(_s8_key(c) for c in calls)
+    df_keys = {(tuple(r["x"]), tuple(r["w"]), r["stride"], r["out"],
+                r["res"]): r["launches_per_batch"]
+               for e in df_entries.values() for r in e["shapes"]}
+    differ = [_s8_differing(c)[0] for c in calls]
+    worst = max(n for d in differ for n in d.values())
+    print(f"[quality s8] 256 one int8 gate batch of 16: {len(calls)} calls "
+          f"on {len(keys)} shapes, the shapes and counts of [df256 s8]'s "
+          f"model-1001 batch {dict(keys) == df_keys}; elements differing "
+          f"from the plain version on both routes {worst}", flush=True)
+    del calls
+    if dict(keys) != df_keys or worst:
+        raise AssertionError("[quality s8] 256: calls differ from "
+                             "[df256 s8]'s or from the plain version")
+
+    small = {"batch_size": 2}
+    with contextlib.redirect_stdout(io.StringIO()):
+        card, pose, s8, _, _ = _counted(lambda: pq.check(
+            mdir, n_batches=2, cfg_overrides=small))
+        cpu = pq.check(mdir, n_batches=2,
+                       cfg_overrides=dict(small, platform="cpu"))
+    path = "[quality] Market check, batch 2"
+    pose_by_path[path], s8_by_path[path] = pose, s8
+    # half the gap: a card path that quietly ran float would read
+    # SSIM(int8, float) = 1, one whole gap off
+    limit = (1.0 - cpu["ssim_int8_float"]) / 2
+    diff = {k: abs(card[k] - cpu[k]) for k in GATE_KEYS}
+    print(f"[quality] card vs CPU check, batch 2 at full Market width, "
+          f"n_batches 2, same checkpoint: card "
+          f"{ {k: round(card[k], 6) for k in GATE_KEYS} }, CPU "
+          f"{ {k: round(cpu[k], 6) for k in GATE_KEYS} }, |diff| "
+          f"{ {k: f'{v:.2e}' for k, v in diff.items()} }; limit half the "
+          f"CPU's int8-vs-float SSIM gap {limit:.4e}; launches s8 {s8}, "
+          f"pose {pose}", flush=True)
+    if not 0.0 < limit or max(diff.values()) > limit or pose != 2 or \
+            sum(s8.values()) != S8_GENERATOR_CONVS:
+        raise AssertionError("[quality] card and CPU checks disagree")
+    return pose_by_path, s8_by_path, entries
+
+
 def _timed(phase):
     """`phase`, printing the seconds each call of it took."""
     @functools.wraps(phase)
@@ -3278,10 +3551,13 @@ def main() -> int:
                  **phase_remat(tmp)}
         phase_inversion(tmp)
         ddp_pose, ddp_s8, ddp_entries = phase_ddp(tmp)
+        phase_score(os.path.join(tmp, "m12"))
+        q_pose, q_s8, q_entries = phase_quality(tmp, df_entries)
     by_path = {"model 12 transfer": model12, **sampling,
                "model 1 training": train, **stage2, **data, **bf16,
-               **int8_pose, **df_train, **df_pose, **modes, **ddp_pose}
-    for path in (*df_train, *df_pose, *modes):
+               **int8_pose, **df_train, **df_pose, **modes, **ddp_pose,
+               **q_pose}
+    for path in (*df_train, *df_pose, *modes, *q_pose):
         if not by_path[path]:
             raise AssertionError(f"the pose kernel was not launched on "
                                  f"{path}")
@@ -3289,8 +3565,10 @@ def main() -> int:
     kernel["launches_by_path"] = by_path
     s8_by_path.update(df_s8)
     s8_by_path.update(ddp_s8)
+    s8_by_path.update(q_s8)
     for route, entry in s8.items():
-        for key, sub in (("df256", df_entries), ("ddp batch 8", ddp_entries)):
+        for key, sub in (("df256", df_entries), ("ddp batch 8", ddp_entries),
+                         ("gate Market batch 64", q_entries)):
             entry[key] = {k: sub[route][k] for k in (
                 "per", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "mma_sync_ms", "cudnn_bf16_ms", "max_abs_err",

@@ -20,7 +20,9 @@ inputs; the int8 testers (models 12 and 11) and the bfloat16 tester on the
 card against the CPU. The DeepFashion family: a model-101 step (the
 single-branch encoder at the small config) and a model-103 step on the
 card against the CPU, and models 1001 and 1002 at 256x256 (narrow) in
-float32 and int8.
+float32 and int8. The scoring protocol on the card against the CPU; the
+s8 conv on every call of one Market int8 gate batch of 64; the int8
+gate's check on the card against the CPU.
 
 Marked `cuda` and skipped without a card. On a machine with one (JAX is not
 needed there, hence no conftest):
@@ -926,3 +928,81 @@ def test_two_ranks_on_one_card_match_world_1(card, tmp_path):
         errs = step_errors(one, ranks.as_record(control))
         print(f"control, per-rank BatchNorm: {errs}")
         assert any(errs[k] > t for k, t in DDP_FLOAT64_TOL.items()), errs
+
+
+# ------------------------------------------------ scoring and the int8 gate
+def test_score_pairs_on_the_card_match_the_cpu(card):
+    """`eval/metrics.py`'s scoring protocol, float64 on both: within 1e-9,
+    a flat target's NaN / inf where the CPU has them."""
+    from dpig_tpu_torch.eval import metrics
+    rng = np.random.default_rng(0)
+    g = rng.integers(0, 256, (6, 128, 64, 3)).astype(np.uint8)
+    x = rng.integers(0, 256, (6, 128, 64, 3)).astype(np.uint8)
+    x[1] = 128
+    g[1, :40] = 50
+    m = rng.integers(0, 256, (6, 128, 64)).astype(np.uint8)
+    args = [torch.from_numpy(a) for a in (g, x, m)]
+    for fn, n in ((metrics.score_pair_gray, 2),
+                  (metrics.score_pair_masked, 3)):
+        want = fn(*args[:n])
+        got = fn(*[a.to(card) for a in args[:n]])
+        for k, v in want.items():
+            w, c = v.numpy(), got[k].cpu().numpy()
+            assert got[k].device.type == "cuda"
+            assert np.array_equal(np.isnan(w), np.isnan(c)), k
+            fin = np.isfinite(w)
+            assert np.array_equal(w[~fin & ~np.isnan(w)],
+                                  c[~fin & ~np.isnan(w)]), k
+            np.testing.assert_allclose(c[fin], w[fin], rtol=0, atol=1e-9)
+
+
+def test_gate_batch_s8_shapes_are_bit_equal(card, tmp_path):
+    """Every s8 conv call of one Market int8 gate batch of 64 (`check
+    --transfer`: the int8 encoder and generator, weights from a one-step
+    `train`), on the route `plan` picks and on mma_sync, bit-equal to the
+    plain version, each launch counted."""
+    from dpig_tpu_torch.eval import int8_quality as pq
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    pq.train(1, str(tmp_path), pool_size=1)
+    calls, launch = [], sc.s8_conv_cuda
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return launch(*a, **kw)
+
+    sc.s8_conv_cuda = record
+    try:
+        pq.check(str(tmp_path), n_batches=2, transfer=True)
+    finally:
+        sc.s8_conv_cuda = launch
+    calls = calls[30:]  # the calibration batch's encoder pass
+    assert len(calls) == 60
+    assert {a[0].shape[0] for a, _ in calls} == {64, 7 * 64}  # ROI batch
+    for a, kw in calls:
+        want = sc.s8_conv_plain(*a, **kw)
+        for route in {sc.plan(tuple(a[0].shape), tuple(a[1].shape),
+                              a[4] if len(a) > 4 else kw.get("stride", 1)
+                              ).route, "mma_sync"}:
+            before = sc.launches_by_route[route]
+            assert torch.equal(sc.s8_conv_cuda(*a, **kw, route=route),
+                               want), (tuple(a[0].shape), route)
+            assert sc.launches_by_route[route] == before + 1
+
+
+def test_int8_gate_on_the_card_matches_the_cpu(card, tmp_path):
+    """`check` at a small config (hidden 64: the wgmma route runs) on the
+    card and on the CPU from one checkpoint: the four SSIM numbers within
+    half the CPU's int8-vs-float SSIM gap (a card path that quietly ran
+    float would be one gap off), chip_smoke.py's [quality] limit."""
+    from dpig_tpu_torch.eval import int8_quality as pq
+    small = dict(img_H=32, img_W=16, batch_size=4, conv_hidden_num=64,
+                 z_num=16)
+    pq.train(2, str(tmp_path), pool_size=2,
+             cfg_overrides=dict(small, platform="cpu"))
+    got = pq.check(str(tmp_path), n_batches=2, cfg_overrides=small)
+    want = pq.check(str(tmp_path), n_batches=2,
+                    cfg_overrides=dict(small, platform="cpu"))
+    gap = 1.0 - want["ssim_int8_float"]
+    assert gap > 0.0, want
+    for k, v in want.items():
+        assert abs(got[k] - v) <= gap / 2, (k, got[k], v, gap)
