@@ -6,8 +6,10 @@
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and `nvcc`.
 Phases, each printing one line; any failure exits non-zero:
 
-  1. device   the card's name and power limit (nvidia-smi); TF32 off for
-              cuDNN convs and cuBLAS matmuls, so float32 is float32;
+  1. device   the card's name and power limit (nvidia-smi), its driver,
+              cuDNN, and the host's CPU (where the parity phases' CPU
+              references run); TF32 off for cuDNN convs and cuBLAS
+              matmuls, so float32 is float32;
   2. build    every CUDA kernel of the port, from the sources here, with
               ptxas's registers, shared memory and spills per kernel;
   3. kernels  each kernel against its plain PyTorch version on the card at
@@ -47,7 +49,10 @@ Phases, each printing one line; any failure exits non-zero:
               alone) the D gradient one. Then, with the L1 term alone as
               the G objective, the generator's gradients within
               L1_GRAD_TOL, and TF32 in the backward passes alone must
-              exceed it.
+              exceed it. Where the check fails, the phase fails, after
+              printing the CPU reference step against the CPU's float64
+              step and each side's float32 step against a float64 step
+              (which side moved, ROADMAP §3).
 
   8. sampling  through the CLI entry point at full Market width, cold
               start: model 11 (`--model=11 --sample_app=true
@@ -123,8 +128,10 @@ Phases, each printing one line; any failure exits non-zero:
  14. s8 conv  the s8 conv on every call one int8 model-12 batch at full
               width makes (the generator and the FG/BG encoder, recorded
               after calibration), on the route `plan` gives it (wgmma,
-              csrc/s8_conv_sm90.cu, or mma_sync, csrc/s8_conv.cu) and, for
-              the wgmma shapes, on the mma_sync kernel too: 0 elements
+              csrc/s8_conv_sm90.cu; narrow_ci, csrc/s8_conv_narrow_ci.cu,
+              the pose stem; narrow_co, csrc/s8_conv_narrow_co.cu,
+              to_rgb) and on the mma_sync kernel (csrc/s8_conv.cu, the
+              yardstick and the route of any other shape) too: 0 elements
               differing from the plain version on each, the device times
               of both kernels and of the plain version, launches per batch,
               the bound (2*M*N*K at the dense s8 tensor rate, or the bytes
@@ -212,9 +219,10 @@ Phases, each printing one line; any failure exits non-zero:
               which gloo collectives take CUDA tensors; (c) one
               int8 model-12 batch over the two ranks, 8 rows each, with
               the same tables, against world 1's rows within world 1's
-              int8-vs-float32 gap; the s8 conv on every shape of a batch
-              of 8 bit-equal to its plain version on both kernels (and the
-              pose kernel at B=8 in phase 3).
+              int8-vs-float32 gap, with each path's s8 launches per route
+              (the stem on narrow_ci, to_rgb on narrow_co); the s8 conv on
+              every shape of a batch of 8 bit-equal to its plain version on
+              both kernels (and the pose kernel at B=8 in phase 3).
 22. score    `python -m dpig_tpu_torch.eval.score 1 <phase 4's model_dir>
               test_result` and `--mask` on the card (the IS-skipped
               line), then `score_stage1` on the card and on the CPU:
@@ -231,15 +239,18 @@ Phases, each printing one line; any failure exits non-zero:
               every call of one gate batch (Market 64 with --transfer) as
               in phase 14; at 256 the gate batch of 16 makes phase 16's
               model-1001 calls, shape for shape: each is checked
-              bit-equal on both routes, and its times are [df256 s8]'s;
+              bit-equal on its route and on mma_sync, and its times are
+              [df256 s8]'s;
               `check` at batch 2 on the card and on the CPU from one
               checkpoint, its four SSIM numbers within half the CPU's
               int8-vs-float SSIM gap.
 
 The line before the last is {"kernels": [...]}: the pose kernel with its
-launches on each path, and the s8 conv's two routes, each with its
-launches on the int8 paths and its times summed over its calls of one
-int8 model-12 batch, under "df256" over one int8 model-1001 batch at
+launches on each path, and the s8 conv's four routes (wgmma, narrow_ci,
+narrow_co, and mma_sync, the yardstick, timed on every call and launched
+by no main path), each with its launches on the int8 paths and its times
+summed over its calls of one int8 model-12 batch, under "df256" over one
+int8 model-1001 batch at
 256x256, under "ddp batch 8" over one rank's int8 model-12 batch of 8
 and under "gate Market batch 64" over one int8 gate batch of 64 (the
 256 gate batch makes the "df256" calls); the last line is {"ok": true,
@@ -372,15 +383,39 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(smi, flush=True)
     print(f"[device] {name} | nvidia-smi: {smi} | count "
           f"{torch.cuda.device_count()} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | cudnn.allow_tf32="
+          f"{torch.version.cuda} cudnn {torch.backends.cudnn.version()} | "
+          f"driver {driver} | cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    print(f"[device] host: {_host_cpu()}", flush=True)
     return name
+
+
+def _host_cpu() -> str:
+    """The host CPU's model, cores, vector ISA and PyTorch's CPU kernels'
+    capability: the CPU references of the parity phases run there."""
+    model, flags = "unknown", set()
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key.strip() == "model name" and model == "unknown":
+                model = value.strip()
+            elif key.strip() == "flags" and not flags:
+                flags = set(value.split())
+    isa = [x for x in ("avx2", "avx512f", "avx512_bf16", "amx_tile")
+           if x in flags]
+    return (f"{model}, {os.cpu_count()} CPUs, {torch.get_num_threads()} "
+            f"torch threads, {' '.join(isa) or 'no AVX2'}, torch CPU "
+            f"capability {torch.backends.cpu.get_cpu_capability()}")
 
 
 def phase_build():
@@ -391,6 +426,8 @@ def phase_build():
     sources = {"pose_raster": ("pose_raster.cu", _build.load),
                "s8_conv": ("s8_conv.cu", _build.load),
                "s8_conv_sm90": ("s8_conv_sm90.cu", _build.load),
+               "s8_conv_narrow_ci": ("s8_conv_narrow_ci.cu", _build.load),
+               "s8_conv_narrow_co": ("s8_conv_narrow_co.cu", _build.load),
                "tfrecord_scanner": ("tfrecord_scanner.cc", _build.load_host)}
 
     def build(lib):
@@ -412,7 +449,12 @@ def phase_build():
                        ("s8_conv_sm90", "; five conv kernels (128x128 and "
                         "128x256 tiles, split-K off / on; 256x128) and the "
                         "split-K finish; 168 at launch, setmaxnreg 64 "
-                        "producer / 216 consumers")):
+                        "producer / 216 consumers"),
+                       ("s8_conv_narrow_ci", "; 18 kernels: 1x1 / 3x3 x "
+                        "out s8 / bf16 / f32 x residual none / s8 / bf16; "
+                        "dynamic shared memory"),
+                       ("s8_conv_narrow_co", "; 2 kernels: 1x1 / 3x3; "
+                        "dynamic shared memory")):
         ptxas = [ln.split(":", 1)[-1].strip() for ln in
                  _build.build_log(name).splitlines()
                  if "Used" in ln or "spill" in ln]
@@ -1087,16 +1129,18 @@ def phase_train_parity(model_dir, size=None, fg_bg=True,
             "control: past the guard, TF32": (True, _train_step_unguarded),
             "control: forwards guarded only, TF32": (
                 True, Stage1App.train_step.__wrapped__)}
-    errs, readings = {}, {}
     terms = (("G objective", contextlib.nullcontext),
              ("L1 term", _l1_term_only))[:1 if d_arch else 2]
+    errs, readings, g_ref = {}, {}, None
     for term, context in terms:
         with context():
             ref = recorded_train_step(
                 Stage1App(cfgs["cpu"], torch.device("cpu"), fg_bg=fg_bg),
                 batch)
-            if (df256 or gaps) and term == "G objective":
-                readings.update(_float32_gaps(cfgs, batch, fg_bg, ref))
+            if term == "G objective":
+                g_ref = ref
+                if df256 or gaps:
+                    readings.update(_float32_gaps(cfgs, batch, fg_bg, ref))
             for label, (tf32, step_fn) in runs.items():
                 if term == "L1 term" and "past the guard" in label:
                     continue
@@ -1126,13 +1170,32 @@ def phase_train_parity(model_dir, size=None, fg_bg=True,
           f"(losses: relative diff; sub-nets: gradient ||diff|| / ||grad||, "
           f"'max': max|diff| / max|grad|; d_stats: max abs diff); "
           f"tolerances {tols}", flush=True)
-    for term, tol in tols.items():
-        for label in ("float32", "TF32 flags on"):
-            if any(errs[term, label].get(k, 0.0) > t
-                   for k, t in tol.items()):
-                raise AssertionError(f"card and CPU train steps disagree "
-                                     f"beyond the tolerances ({term}, "
-                                     f"{label})")
+    failed = [(term, label) for term, tol_ in tols.items()
+              for label in ("float32", "TF32 flags on")
+              if any(errs[term, label].get(k, 0.0) > t
+                     for k, t in tol_.items())]
+    if failed:
+        # Which side moved (ROADMAP §3): the CPU reference step itself
+        # against the CPU's float64 step, then each side's float32 step
+        # taken again against a float64 step.
+        wide = recorded_train_step(
+            _float64(Stage1App(cfgs["cpu"], torch.device("cpu"),
+                               fg_bg=fg_bg)), batch,
+            g_updated=g_ref.g_updated)
+        ref_err = step_errors(wide, g_ref)
+        off = [k for k, t in tols["G objective"].items()
+               if ref_err.get(k, 0.0) > t]
+        print(f"{tag} G objective, the CPU reference step against the "
+              f"CPU's float64 step: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in ref_err.items())
+              + f"; beyond the tolerances: {off or 'none'}", flush=True)
+        if not (df256 or gaps):
+            for what, gap in _float32_gaps(cfgs, batch, fg_bg,
+                                           g_ref).items():
+                print(f"{tag} G objective, {what}: " + ", ".join(
+                    f"{k} {v:.3e}" for k, v in gap.items()), flush=True)
+        raise AssertionError(f"card and CPU train steps disagree beyond "
+                             f"the tolerances {failed}")
     guarded_forwards = "control: forwards guarded only, TF32"
     # (term, run, keys, whether every key must exceed its limit or one)
     controls = [("G objective", "control: past the guard, TF32", G_NETS,
@@ -1772,10 +1835,18 @@ def _int_mm_ms(c, reps=25, inner=20):
     return _graph_ms(lambda: torch._int_mm(a, b), reps=reps, inner=inner)
 
 
+S8_SOURCES = {"wgmma": "s8_conv_sm90.cu",
+              "narrow_ci": "s8_conv_narrow_ci.cu",
+              "narrow_co": "s8_conv_narrow_co.cu", "mma_sync": "s8_conv.cu"}
+
+
 def _s8_route_entry(route, rows, per):
     """The kernels-line entry of one s8 route: its times, bound and
-    yardsticks summed over its calls of one int8 batch."""
-    mine = [r for r in rows if r["route"] == route]
+    yardsticks summed over its calls of one int8 batch. The mma_sync
+    kernel, the yardstick, is entered with its times on every call of the
+    batch, whatever their route."""
+    yardstick = route == "mma_sync"
+    mine = [r for r in rows if yardstick or r["route"] == route]
 
     def per_batch(key):
         vals = [r[key] for r in mine]
@@ -1786,13 +1857,15 @@ def _s8_route_entry(route, rows, per):
     bound_by = max(("operations", "bytes"), key=lambda b: sum(
         r["bound_ms"] * r["launches_per_batch"] for r in mine
         if r["bound_by"] == b))
-    source = {"wgmma": "s8_conv_sm90.cu", "mma_sync": "s8_conv.cu"}[route]
+    routed = sum(r["launches_per_batch"] for r in mine
+                 if r["route"] == route)
     return {"name": f"s8_conv ({route})", "route": "cuda",
-            "source": f"dpig_tpu_torch/csrc/{source}",
+            "source": f"dpig_tpu_torch/csrc/{S8_SOURCES[route]}",
             "replaces": "dpig_tpu/models/quant.py:71",
             "launches": None,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": per_batch("ms"), "plain_ms": per_batch("plain_ms"),
+            "ms": per_batch("mma_sync_ms" if yardstick else "ms"),
+            "plain_ms": per_batch("plain_ms"),
             "bound_ms": per_batch("bound_ms"), "bound_by": bound_by,
             "library_ms": per_batch("int_mm_ms"),
             "library_call": "torch._int_mm on the im2col matrix (the "
@@ -1800,16 +1873,17 @@ def _s8_route_entry(route, rows, per):
                             "a shape",
             "mma_sync_ms": per_batch("mma_sync_ms"),
             "cudnn_bf16_ms": per_batch("cudnn_bf16_ms"),
-            "per": f"its {sum(r['launches_per_batch'] for r in mine)} calls "
-                   f"of {per}",
+            "per": (f"all {sum(r['launches_per_batch'] for r in mine)} "
+                    f"calls of {per}, {routed} of them routed here"
+                    if yardstick else f"its {routed} calls of {per}"),
             "shapes": mine}
 
 
 def phase_s8_conv():
     """The s8 conv on every conv shape one int8 model-12 batch at full
     Market width gives it (the generator and the FG/BG encoder, recorded
-    from a real batch after calibration), on the route `plan` picks and,
-    for the wgmma shapes, on the mma_sync kernel too: each bit-equal to the
+    from a real batch after calibration), on the route `plan` picks and on
+    the mma_sync kernel too: each bit-equal to the
     plain version, the device times of both kernels and of the plain
     version, launches per batch, the card's bound and its share, cuDNN's
     bfloat16 conv at the same shape (the float path it stands in for) and
@@ -1860,7 +1934,7 @@ def _s8_calls_table(calls, tag, per, reps=25, inner=20):
     each bit-equal to the plain version on its route and on mma_sync,
     with the times of both kernels, the plain version, cuDNN's bf16 conv
     and `torch._int_mm`, the bound and its share, printed under `tag` ->
-    (the two routes' entries summed per batch, the number of calls).
+    (the routes' entries summed per batch, the number of calls).
     `reps` / `inner` set the CUDA-graph timing of the kernels and the
     yardsticks."""
     from dpig_tpu_torch.kernels import s8_conv as sc
@@ -1905,7 +1979,9 @@ def _s8_calls_table(calls, tag, per, reps=25, inner=20):
               f"{bound_by} bound), mma_sync {mma_ms * 1e3:.1f} us, plain "
               f"{plain_ms * 1e3:.1f} us, cuDNN bf16 conv "
               f"{cudnn_ms * 1e3:.1f} us, torch._int_mm {imm}", flush=True)
-    entries = {r: _s8_route_entry(r, rows, per) for r in sc.ROUTES}
+    used = {r["route"] for r in rows} | {"mma_sync"}
+    entries = {r: _s8_route_entry(r, rows, per) for r in sc.ROUTES
+               if r in used}
     for route, e in entries.items():
         imm = ("n/a" if e["library_ms"] is None
                else f"{e['library_ms']:.3f} ms")
@@ -1916,7 +1992,7 @@ def _s8_calls_table(calls, tag, per, reps=25, inner=20):
               f"({e['bound_ms'] / e['ms']:.1%}), cuDNN bf16 convs "
               f"{e['cudnn_bf16_ms']:.3f} ms, torch._int_mm {imm}",
               flush=True)
-    total = {k: sum(e[k] for e in entries.values())
+    total = {k: sum(r[k] * r["launches_per_batch"] for r in rows)
              for k in ("ms", "mma_sync_ms", "bound_ms", "cudnn_bf16_ms")}
     print(f"{tag} {per}: {len(calls)} launches "
           f"on {len(rows)} shapes, {total['ms']:.3f} ms as routed (all on "
@@ -2009,6 +2085,14 @@ def _int8_remainder(kernels, ops, tag="[int8]",
               flush=True)
 
 
+def _s8_routes(total, stem, rgb):
+    """The s8 launches by route of `total` calls, `stem` of them pose stems
+    (narrow_ci) and `rgb` of them to_rgb (narrow_co): the rest on wgmma,
+    none on mma_sync."""
+    return {"wgmma": total - stem - rgb, "narrow_ci": stem,
+            "narrow_co": rgb, "mma_sync": 0}
+
+
 def phase_int8(tmp):
     """`--inference_dtype=int8` at the defaults (channel, island): models 12
     and 11 through the CLI, their self-check SSIM and s8 / pose launches;
@@ -2020,33 +2104,32 @@ def phase_int8(tmp):
 
     base = ["--is_train=false", "--synthetic_data=true",
             "--inference_dtype=int8"]
-    # path: (flags, batches, s8 launches of the generator, of them on the
-    # mma_sync route, encoder run per batch, pose launches per batch).
+    # path: (flags, batches, s8 launches of the generator, of them the
+    # stem's and to_rgb's, encoder run per batch, pose launches per batch).
     # Calibration adds one int8 encoder pass (its embeddings) and the
     # self-check one int8 generator pass; the fallback runs the two named
-    # layers in bf16, and the legacy graph has no s8 stem. The mma_sync
-    # route takes the 18-channel stem and the 3-channel to_rgb, the wgmma
-    # route every other conv (all the encoder's).
+    # layers (dec/Conv_13, to_rgb) in bf16, and the legacy graph has no s8
+    # stem. The narrow_ci route takes the 18-channel stem, narrow_co the
+    # 3-channel to_rgb, wgmma every other conv (all the encoder's).
     runs = {
         "model 12 transfer int8": (
-            ["--model=12"], INT8_BATCHES, S8_GENERATOR_CONVS, 2, True, 2),
+            ["--model=12"], INT8_BATCHES, S8_GENERATOR_CONVS, 1, 1, True, 2),
         "model 11 sampling int8": (
             ["--model=11", "--sample_app=true", "--pose_source=sampled"],
-            INT8_BATCHES, S8_GENERATOR_CONVS, 2, False, 3),
+            INT8_BATCHES, S8_GENERATOR_CONVS, 1, 1, False, 3),
         "model 12 int8 island fallback": (
             ["--model=12", f"--int8_fallback_layers={INT8_FALLBACK}"], 1,
-            S8_GENERATOR_CONVS - 2, 1, True, 2),
+            S8_GENERATOR_CONVS - 2, 1, 0, True, 2),
         "model 12 int8 legacy fallback": (
             ["--model=12", f"--int8_fallback_layers={INT8_FALLBACK}",
              "--int8_fallback_mode=legacy"], 1, S8_GENERATOR_CONVS - 3, 0,
-            True, 2)}
+            0, True, 2)}
     s8_launches, pose_launches = {}, {}
-    for i, (path, (flags, n, gen, gen_mma, enc, pose_per)) in enumerate(
+    for i, (path, (flags, n, gen, stem, rgb, enc, pose_per)) in enumerate(
             runs.items()):
         want_s8 = S8_ENCODER_CONVS + gen + n * (gen + (
             S8_ENCODER_CONVS if enc else 0))
-        want_routes = {"mma_sync": (n + 1) * gen_mma}
-        want_routes["wgmma"] = want_s8 - want_routes["mma_sync"]
+        want_routes = _s8_routes(want_s8, (n + 1) * stem, (n + 1) * rgb)
         pose, s8, by_route, wall, text = _run_cli_s8(
             base + flags + [f"--test_batch_num={n}",
                             f"--model_dir={os.path.join(tmp, f'q{i}')}"])
@@ -2321,7 +2404,6 @@ def phase_df256_test(tmp, dirs):
     int8: the trees, no RANDOM-init line, the pose and s8 launches each
     path must make -> (pose launches by path, s8 launches by path and
     route)."""
-    from dpig_tpu_torch.kernels import s8_conv as sc
     flags = [f"--pretrained_path={dirs[101]}",
              f"--pretrained_poseAE_path={dirs[102]}",
              f"--pretrained_appSample_path={dirs[103]}",
@@ -2345,11 +2427,10 @@ def phase_df256_test(tmp, dirs):
             # one real pose; int8 adds the calibration batch's pose maps
             want_pose = n * (2 if model == 1001 else 1) + int8
             # int8: the generator per batch plus the self-check pass, no
-            # int8 encoder at 256; the stem and to_rgb on mma_sync
+            # int8 encoder at 256; the stem on narrow_ci, to_rgb on
+            # narrow_co
             want_s8 = (n + 1) * S8_GENERATOR_CONVS if int8 else 0
-            want_routes = ({"mma_sync": 2 * (n + 1),
-                            "wgmma": (n + 1) * (S8_GENERATOR_CONVS - 2)}
-                           if int8 else dict.fromkeys(sc.ROUTES, 0))
+            want_routes = _s8_routes(want_s8, (n + 1) * int8, (n + 1) * int8)
             root = os.path.join(out, trees[model][0])
             counts = {d: len(os.listdir(os.path.join(root, d)))
                       for d in sorted(os.listdir(root))}
@@ -3088,6 +3169,14 @@ def phase_ddp(tmp):
         pose_raster.launches
     s8_by_path["[ddp] int8 model 12, world 1, batch 16"] = dict(
         sc.launches_by_route)
+    # the calibration's encoder pass, then the batch's encoder and
+    # generator: the stem on narrow_ci, to_rgb on narrow_co
+    want_routes = _s8_routes(2 * S8_ENCODER_CONVS + S8_GENERATOR_CONVS, 1,
+                             1)
+    if sc.launches_by_route != want_routes:
+        raise AssertionError(f"[ddp] int8 world 1: s8 launches "
+                             f"{sc.launches_by_route}, expected "
+                             f"{want_routes}")
     gap = (images16 - f32.transfer_step(b16)[0].cpu()).abs()
     del f32
     torch.cuda.empty_cache()
@@ -3253,8 +3342,10 @@ def phase_ddp(tmp):
         if float(diff.max()) > float(gap.max()) or \
                 float(diff.mean()) > float(gap.mean()):
             failures.append(f"int8 rank {r} beyond the int8 gap")
-        if not all(o["s8_launches"].values()) or not o["pose_launches"]:
-            failures.append(f"int8 rank {r}: a kernel was not launched")
+        if o["s8_launches"] != want_routes or not o["pose_launches"]:
+            failures.append(f"int8 rank {r}: s8 launches "
+                            f"{o['s8_launches']}, expected {want_routes}, "
+                            f"pose launches {o['pose_launches']}")
         pose_by_path[f"[ddp] int8 model 12, rank {r} of 2"] = \
             o["pose_launches"]
         s8_by_path[f"[ddp] int8 model 12, rank {r} of 2"] = o["s8_launches"]
@@ -3347,25 +3438,27 @@ def phase_score(model_dir):
 
 
 def _gate_launches(kind, steps=0):
-    """(s8 launches, of them on mma_sync, pose launches) one gate path
-    must make, with QUALITY_BATCHES held-out batches: the first calibrates
-    (the float stats forward: no s8), each other one renders its pose and
-    runs the int8 generator (G convs, 2 on mma_sync: the stem and
-    to_rgb); --transfer adds the int8 encoder (E convs, all wgmma) on
-    every batch; --per_layer runs the legacy graph (no s8 stem: G - 1
-    convs, to_rgb on mma_sync) once whole and once without each of the G
-    table layers; the sweep's tail fallbacks leave 3 layers out (to_rgb
-    among them), the legacy one running the rest without the stem."""
+    """(s8 launches, of them the stem's on narrow_ci and to_rgb's on
+    narrow_co, pose launches) one gate path must make, with
+    QUALITY_BATCHES held-out batches: the first calibrates (the float
+    stats forward: no s8), each other one renders its pose and runs the
+    int8 generator (G convs: one stem, one to_rgb); --transfer adds the
+    int8 encoder (E convs, all wgmma) on every batch; --per_layer runs the
+    legacy graph (no s8 stem: G - 1 convs, one to_rgb) twice whole and
+    once without each of the other G - 1 table layers (to_rgb among them);
+    the sweep runs 4 schemes whole and two tail fallbacks that leave 3
+    layers out (to_rgb among them), the legacy one running the rest
+    without the stem."""
     g, e, n = S8_GENERATOR_CONVS, S8_ENCODER_CONVS, QUALITY_BATCHES - 1
     legacy = g - 1
-    return {"train": (0, 0, steps),
-            "check": (n * g, 2 * n, n + 1),
-            "check --transfer": (e + n * (e + g), 2 * n, n + 1),
+    return {"train": (0, 0, 0, steps),
+            "check": (n * g, n, n, n + 1),
+            "check --transfer": (e + n * (e + g), n, n, n + 1),
             "check --per_layer": (n * g + 2 * legacy + (g - 1) * (legacy - 1),
-                                  2 * n + g, n + 2),
+                                  n, n + 2 + (g - 2), n + 2),
             "sweep": (4 * n * g + n * (legacy - 3) + n * (g - 3),
-                      8 * n + n, 6 * (n + 1)),
-            "gate": (n * g, 2 * n, n + 1)}[kind]
+                      4 * n + n, 4 * n, 6 * (n + 1)),
+            "gate": (n * g, n, n, n + 1)}[kind]
 
 
 def phase_quality(tmp, df_entries):
@@ -3414,13 +3507,15 @@ def phase_quality(tmp, df_entries):
             finally:
                 Stage1App.train_step = step
             path = f"[quality] {size} {kind}"
-            want_s8, want_mma, want_pose = _gate_launches(kind, steps)
-            got = (sum(s8.values()), s8["mma_sync"], pose)
+            want_s8, want_ci, want_co, want_pose = _gate_launches(kind,
+                                                                  steps)
+            got = (sum(s8.values()), s8["narrow_ci"], s8["narrow_co"],
+                   s8["mma_sync"], pose)
             print(f"{path}: {wall:.1f} s wall; s8 conv launches {s8} "
-                  f"(expected {want_s8}, {want_mma} on mma_sync), pose "
-                  f"kernel launches {pose} (expected {want_pose})",
-                  flush=True)
-            if got != (want_s8, want_mma, want_pose):
+                  f"(expected {want_s8}, {want_ci} on narrow_ci, {want_co} "
+                  f"on narrow_co, 0 on mma_sync), pose kernel launches "
+                  f"{pose} (expected {want_pose})", flush=True)
+            if got != (want_s8, want_ci, want_co, 0, want_pose):
                 raise AssertionError(f"{path}: launches {got}")
             pose_by_path[path], s8_by_path[path] = pose, s8
             if kind == "train":
@@ -3566,6 +3661,10 @@ def main() -> int:
     s8_by_path.update(df_s8)
     s8_by_path.update(ddp_s8)
     s8_by_path.update(q_s8)
+    # the routes `plan` gives the main paths' calls: each must have been
+    # launched there; mma_sync, the yardstick, is timed on every call
+    planned = {r["route"] for sub in (s8, df_entries, ddp_entries, q_entries)
+               for r in sub["mma_sync"]["shapes"]}
     for route, entry in s8.items():
         for key, sub in (("df256", df_entries), ("ddp batch 8", ddp_entries),
                          ("gate Market batch 64", q_entries)):
@@ -3578,7 +3677,7 @@ def main() -> int:
         entry["launches_by_path"] = {p: n[route]
                                      for p, n in s8_by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
-        if not entry["launches"]:
+        if route in planned and not entry["launches"]:
             raise AssertionError(f"the s8 conv's {route} route was not "
                                  "launched on the int8 paths")
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s",

@@ -7,6 +7,17 @@
 // `to_rgb` :456-461, `roi_fgbg_forward` :848-858). The wrapper and the
 // plain version are in dpig_tpu_torch/kernels/s8_conv.py.
 //
+// Its place: the first and simplest of the s8 conv's kernels, kept as the
+// yardstick (`s8_conv_cuda(..., route="mma_sync")` runs it on any shape,
+// and chip_smoke.py times it beside every call) and as the route of the
+// shapes no other kernel takes. `plan` sends Ci % 64 == 0, Co >= 8 to
+// s8_conv_sm90.cu (every conv of the Market generator and encoder but
+// two), the pose stem's narrow input to s8_conv_narrow_ci.cu and
+// `to_rgb`'s three outputs to s8_conv_narrow_co.cu. What is left here:
+// stride 2 unless Ci % 64 == 0 and Co >= 8; Ci above 32 and not a
+// multiple of 64 with Co >= 8; Co above 256 with Ci <= 32; Co < 8 with
+// Ci % 16 != 0 or Ci above 256.
+//
 // What it computes, for NHWC s8 input x [B,H,W,Ci], weights w [Co,k,k,Ci]
 // (k = 1 or 3), stride 1 or 2 and XLA's SAME pads (pad_t, pad_l given; the
 // far side pads whatever is left, the asymmetric stride-2 case included):
@@ -27,16 +38,15 @@
 // distinct banks. Each warp computes 32 x 32 with mma.sync m16n8k32 s8
 // (int32 accumulators, exact). While the tensor cores work on one slice,
 // the next one's global loads are in flight in registers (when Ci is a
-// multiple of 16 and the pointers 16-byte aligned: every conv of the
-// Market generator and encoder but the 18-channel pose stem, whose slices
-// are gathered byte by byte).
+// multiple of 16 and the pointers 16-byte aligned; other slices are
+// gathered byte by byte).
 //
-// What bounds it on an H100: at the Market shapes the 3x3 convs do
-// 2*M*N*K = 19-155 GFLOP of s8 work on 2-50 MB, far above the card's
-// ratio of 1979 TOP/s to 3.35 TB/s, so the bound is the s8 tensor-core
-// rate. mma.sync reaches a fraction of it (wgmma and TMA are what reach
-// the rest); that redesign is later work, this kernel is the simple one
-// that is right.
+// What bounds it on an H100: the wide 3x3 convs do 2*M*N*K of s8 work far
+// above the card's ratio of 1979 TOP/s to 3.35 TB/s, so their bound is the
+// s8 tensor-core rate, which mma.sync reaches a fraction of; a narrow
+// conv is bound by its bytes, and one 64 x 64 tile for every shape wastes
+// most of its MMAs and loads there. The kernels beside it are the
+// redesigns; this one is the simple one that is right.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

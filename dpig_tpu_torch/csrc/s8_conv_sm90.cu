@@ -18,7 +18,7 @@
 // (dpig_tpu_torch/kernels/s8_conv.py, `plan`) sends a call here when
 // Ci % 64 == 0 and Co >= 8: every conv of the Market generator and
 // encoder but the 18-channel pose stem and the 3-channel to_rgb, which
-// stay on s8_conv.cu.
+// take s8_conv_narrow_ci.cu and s8_conv_narrow_co.cu.
 //
 // What bounds it on an H100: at the Market shapes the 3x3 convs do
 // 2*M*N*K = 1-155 GOP on 0.5-50 MB, far above the card's ratio of 1979

@@ -34,22 +34,33 @@ CPU `s8_conv` calls it; on the card it launches a kernel, which must
 equal it bit for bit. `epilogue` is the float part alone; the int8 graph's
 bfloat16 fallback islands share it.
 
-Two kernels, two routes, chosen by `plan` from the shapes alone:
+Four kernels, four routes, chosen by `plan` from the shapes alone:
 
 - "wgmma" (`csrc/s8_conv_sm90.cu`): Ci % 64 == 0 and Co >= 8, every conv
   of the Market generator and encoder but two. wgmma on 128 x 128 or
   128 x 256 tiles fed by a TMA / cp.async ring; split-K (`split` > 1)
   where the tile grid leaves SMs idle, its int32 partials stored in a
   workspace the wrapper allocates and summed by a second launch.
-- "mma_sync" (`csrc/s8_conv.cu`): everything else, the 18-channel pose
-  stem and the 3-channel `to_rgb` at Market.
+- "narrow_ci" (`csrc/s8_conv_narrow_ci.cu`): stride 1, Ci <= 32 and
+  8 <= Co <= 256, the 18-channel pose stem. A persistent grid over output
+  tiles of `th` x `tw` pixels with all Co; the input staged once per tile
+  with its halo, 32 bytes a pixel; the output staged and written in full
+  lines.
+- "narrow_co" (`csrc/s8_conv_narrow_co.cu`): stride 1, Co < 8,
+  Ci % 16 == 0 and Ci <= 256, the 3-channel `to_rgb`. A block walks down
+  a strip of `th` output rows x `tw` columns with a ring of input rows in
+  shared memory; N stays at 8.
+- "mma_sync" (`csrc/s8_conv.cu`): everything else (stride 2 with a narrow
+  Ci or Co, 48 channels, Ci % 16 != 0 with Co < 8), and the yardstick:
+  `route="mma_sync"` runs it on any shape.
 
-`launches` counts both kernels' launches in this process,
+`launches` counts all kernels' launches in this process,
 `launches_by_route` each one's.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -58,7 +69,7 @@ import torch.nn.functional as F
 
 from ..models.layers import same_pads
 
-ROUTES = ("wgmma", "mma_sync")
+ROUTES = ("wgmma", "narrow_ci", "narrow_co", "mma_sync")
 launches = 0
 launches_by_route = dict.fromkeys(ROUTES, 0)
 
@@ -71,43 +82,92 @@ _RES_KINDS = {None: 0, torch.int8: 1, torch.bfloat16: 2}
 # the shapes alone, not on the card.
 WGMMA_BM, WGMMA_BK, SM_COUNT = 128, 128, 132
 MIN_SPLIT_STAGES = 3  # each split-K range keeps at least 3 stages
+# The narrow routes' limits (narrow_ci holds a tap's channels in one k32
+# step, narrow_co one k32 chunk of every tap per warp of 8) and the blocks
+# of theirs the card holds at once (2 per SM).
+NARROW_CI_MAX_CI, NARROW_CO_MAX_CI = 32, 256
+NARROW_SLOTS = 2 * SM_COUNT
 
 
 @dataclass(frozen=True)
 class Plan:
-    """How one call runs: `route` ("wgmma" or "mma_sync"), the block tile
-    `bm` x `bn`, `stages` K stages of `bk` bytes and the split-K factor
-    `split` (wgmma only; 1 = no split)."""
+    """How one call runs: `route` (one of ROUTES), the block tile `bm` x
+    `bn`, `stages` K stages of `bk` bytes and the split-K factor `split`
+    (wgmma only; 1 = no split). The narrow routes' output tile is `th`
+    rows x `tw` columns (narrow_ci: bm = th * tw pixels with all Co;
+    narrow_co: a block's strip, bm = tw pixels a row, N 8)."""
     route: str
     bm: int
     bn: int
     bk: int
     stages: int
     split: int
+    th: int = 0
+    tw: int = 0
+
+
+def _narrow_tw(wo: int) -> int:
+    """The narrow routes' tile width: Wo rounded up to 16, at most 64."""
+    return min(64, -(-wo // 16) * 16)
+
+
+def _narrow_co_rows(b: int, ho: int, wo: int, k: int) -> int:
+    """The narrow_co strip height: the fewest waves of NARROW_SLOTS blocks
+    times the input rows each block loads (th + k - 1), the taller strip on
+    a tie."""
+    strips = b * -(-wo // _narrow_tw(wo))
+    best = (None, 1)
+    for th in range(1, ho + 1):
+        cost = -(-strips * -(-ho // th) // NARROW_SLOTS) * (th + k - 1)
+        if best[0] is None or cost <= best[0]:
+            best = (cost, th)
+    return best[1]
 
 
 def plan(x_shape, w_shape, stride: int) -> Plan:
     """The route and tiling of an s8 conv of NHWC input `x_shape` with
-    [Co, k, k, Ci] weights `w_shape`: wgmma where Ci % 64 == 0 and Co >= 8,
-    with the N tile (128 or 256) that pads Co least (256 on a tie); a
-    128-wide N tile gets 256-row M tiles where those still fill the SMs,
-    else 128 rows and, where the tile grid is below the SM count, split-K
-    over as many K ranges as fill the SMs, each at least MIN_SPLIT_STAGES
-    stages long."""
+    [Co, k, k, Ci] weights `w_shape`.
+
+    - wgmma where Ci % 64 == 0 and Co >= 8, with the N tile (128 or 256)
+      that pads Co least (256 on a tie); a 128-wide N tile gets 256-row M
+      tiles where those still fill the SMs, else 128 rows and, where the
+      tile grid is below the SM count, split-K over as many K ranges as
+      fill the SMs, each at least MIN_SPLIT_STAGES stages long.
+    - narrow_ci where the stride is 1, Ci <= 32 and 8 <= Co <= 256: tiles
+      of 128 output pixels with all Co (64 where Co > 128), tw = Wo
+      rounded up to 16, at most 64, and th = 128 // tw rows (64 // tw).
+    - narrow_co where the stride is 1, Co < 8, Ci % 16 == 0 and
+      Ci <= 256: strips tw wide (as above) and `_narrow_co_rows` tall.
+    - mma_sync for the rest: 64 x 64 tiles, 64-byte K slices."""
+    return _plan(tuple(x_shape), tuple(w_shape), stride, SM_COUNT)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(x_shape, w_shape, stride: int, sm_count: int) -> Plan:
+    """`plan` with `sm_count` SMs to fill, cached by its arguments."""
     b, h, w, ci = x_shape
     co, kh, kw, _ = w_shape
     k = kh * kw * ci
+    if stride == 1 and ci <= NARROW_CI_MAX_CI and 8 <= co <= 256:
+        tw = _narrow_tw(w)
+        th = max(1, (128 if co <= 128 else 64) // tw)
+        return Plan("narrow_ci", th * tw, -(-co // 32) * 32, 32, kh * kw, 1,
+                    th, tw)
+    if stride == 1 and co < 8 and ci % 16 == 0 and ci <= NARROW_CO_MAX_CI:
+        tw = _narrow_tw(w)
+        return Plan("narrow_co", tw, 8, 32, kh * kw * -(-ci // 32), 1,
+                    _narrow_co_rows(b, h, w, kh), tw)
     if ci % 64 or co < 8:
         return Plan("mma_sync", 64, 64, 64, -(-k // 64), 1)
     m = b * -(-h // stride) * -(-w // stride)
     bn = 256 if -(-co // 256) * 256 <= -(-co // 128) * 128 else 128
     stages = -(-k // WGMMA_BK)
-    if bn == 128 and -(-m // 256) * -(-co // bn) >= SM_COUNT:
+    if bn == 128 and -(-m // 256) * -(-co // bn) >= sm_count:
         return Plan("wgmma", 256, bn, WGMMA_BK, stages, 1)
     tiles = -(-m // WGMMA_BM) * -(-co // bn)
     split = 1
-    if tiles < SM_COUNT:
-        split = max(1, min(SM_COUNT // tiles, stages // MIN_SPLIT_STAGES))
+    if tiles < sm_count:
+        split = max(1, min(sm_count // tiles, stages // MIN_SPLIT_STAGES))
     return Plan("wgmma", WGMMA_BM, bn, WGMMA_BK, stages, split)
 
 
@@ -120,7 +180,9 @@ def split_ranges(stages: int, split: int) -> List[Tuple[int, int]]:
 
 _fns = {}
 _LIBS = {"mma_sync": ("s8_conv", "dpig_s8_conv"),
-         "wgmma": ("s8_conv_sm90", "dpig_s8_conv_sm90")}
+         "wgmma": ("s8_conv_sm90", "dpig_s8_conv_sm90"),
+         "narrow_ci": ("s8_conv_narrow_ci", "dpig_s8_conv_narrow_ci"),
+         "narrow_co": ("s8_conv_narrow_co", "dpig_s8_conv_narrow_co")}
 
 
 def _kernel(route: str):
@@ -130,8 +192,8 @@ def _kernel(route: str):
         lib, sym = _LIBS[route]
         fn = getattr(_build.load(lib), sym)
         p, i = ctypes.c_void_p, ctypes.c_int
-        # bm, bn, split, workspace
-        extra = [i, i, i, p] if route == "wgmma" else []
+        # wgmma: bm, bn, split, workspace; the narrow routes: th, tw
+        extra = {"wgmma": [i, i, i, p], "mma_sync": []}.get(route, [i, i])
         fn.argtypes = [p, p, p, p, p, i, p, p, i, p] + [i] * 12 + extra + [p]
         fn.restype = ctypes.c_int
         _fns[route] = fn
@@ -201,6 +263,11 @@ def s8_conv_plain(x8: torch.Tensor, w8: torch.Tensor, factor, bias,
     return epilogue(y, relu, res, res_scale, out_scale, out_dtype)
 
 
+_TAKES = {"wgmma": "Ci % 64 == 0 and Co >= 8",
+          "narrow_ci": "stride 1, Ci <= 32 and 8 <= Co <= 256",
+          "narrow_co": "stride 1, Co < 8, Ci % 16 == 0 and Ci <= 256"}
+
+
 def s8_conv_cuda(x8: torch.Tensor, w8: torch.Tensor, factor, bias,
                  stride: int = 1, relu: bool = False,
                  res: Optional[torch.Tensor] = None, res_scale=None,
@@ -208,8 +275,8 @@ def s8_conv_cuda(x8: torch.Tensor, w8: torch.Tensor, factor, bias,
                  route: Optional[str] = None) -> torch.Tensor:
     """The kernel `plan` picks for these shapes (same arguments as
     `s8_conv`); CUDA tensors only. `route="mma_sync"` runs the older kernel
-    on any shape, as a yardstick; `route="wgmma"` raises on a shape the
-    plan does not send there."""
+    on any shape, as a yardstick; `route="wgmma"`, `"narrow_ci"` or
+    `"narrow_co"` raises on a shape the plan does not send there."""
     global launches
     if not (x8.is_cuda and w8.is_cuda):
         raise ValueError("s8_conv_cuda takes CUDA tensors; CPU tensors go "
@@ -255,10 +322,16 @@ def s8_conv_cuda(x8: torch.Tensor, w8: torch.Tensor, factor, bias,
         route = how.route
     elif route not in ROUTES:
         raise ValueError(f"route {route!r}: one of {ROUTES}")
-    elif route == "wgmma" and how.route != "wgmma":
-        raise ValueError(f"x8 {tuple(x8.shape)}, w8 {tuple(w8.shape)}: the "
-                         "wgmma route takes Ci % 64 == 0 and Co >= 8")
+    elif route != "mma_sync" and how.route != route:
+        raise ValueError(f"x8 {tuple(x8.shape)}, w8 {tuple(w8.shape)}, "
+                         f"stride {stride}: the {route} route takes "
+                         f"{_TAKES[route]}")
     extra = []
+    if route in ("narrow_ci", "narrow_co"):
+        if x8.data_ptr() % 16:
+            raise ValueError(f"the {route} route needs x8 16-byte aligned "
+                             "(cp.async)")
+        extra = [how.th, how.tw]
     if route == "wgmma":
         if x8.data_ptr() % 16 or w8.data_ptr() % 16:
             raise ValueError("the wgmma route needs x8 and w8 16-byte "

@@ -15,9 +15,12 @@ channel tails (Ci = 18, Co = 3), every residual and output kind, on the
 route `plan` picks; the wgmma route (`csrc/s8_conv_sm90.cu`) also against
 the mma_sync kernel (`csrc/s8_conv.cu`) over Ci 64-768, ragged M and N,
 stride 2 on odd sizes, ROI crops, split-K on and off, on a side stream and
-in a replayed CUDA graph, with its launches counted per route; refused
-inputs; the int8 testers (models 12 and 11) and the bfloat16 tester on the
-card against the CPU. The DeepFashion family: a model-101 step (the
+in a replayed CUDA graph, with its launches counted per route; the narrow
+routes (`csrc/s8_conv_narrow_ci.cu`: Ci 3-32, Co 8-256;
+`csrc/s8_conv_narrow_co.cu`: Co 1-7, Ci 16-256) the same way, over ragged
+B, H and W (W below the tile too); refused inputs and routes; the int8
+testers (models 12 and 11) and the bfloat16 tester on the card against
+the CPU. The DeepFashion family: a model-101 step (the
 single-branch encoder at the small config) and a model-103 step on the
 card against the CPU, and models 1001 and 1002 at 256x256 (narrow) in
 float32 and int8. The scoring protocol on the card against the CPU; the
@@ -699,7 +702,7 @@ def test_s8_wgmma_split_k_on_and_off(card, monkeypatch, split):
 
 
 @pytest.mark.parametrize("b,h,w,ci,co,route", [
-    (2, 11, 7, 18, 128, "mma_sync"), (2, 9, 5, 256, 3, "mma_sync"),
+    (2, 11, 7, 18, 128, "narrow_ci"), (2, 9, 5, 256, 3, "narrow_co"),
     (2, 9, 5, 256, 8, "wgmma"), (2, 9, 5, 48, 64, "mma_sync")])
 def test_s8_plan_routes_and_counts(card, b, h, w, ci, co, route):
     from dpig_tpu_torch.kernels import s8_conv as sc
@@ -759,6 +762,102 @@ def test_s8_wgmma_refuses_bad_inputs(card):
         sc.s8_conv_cuda(shifted, w8, factor, bias)
     with pytest.raises(ValueError, match="contiguous"):
         sc.s8_conv_cuda(x8.transpose(1, 2), w8, factor, bias)
+
+
+S8_NARROW_CASES = [  # b, h, w, ci, co, k
+    (2, 11, 7, 18, 128, 3),    # the stem's channels, W below the tile
+    (16, 128, 64, 18, 128, 3),  # the Market stem
+    (1, 5, 3, 3, 8, 3),        # Ci 3, Co 8
+    (3, 9, 70, 32, 100, 3),    # Ci 32, Co past 3 warps; a ragged strip
+    (2, 7, 5, 16, 8, 1),       # 1x1
+    (1, 6, 20, 18, 256, 3),    # Co 256: 64-pixel tiles
+    (2, 17, 9, 5, 13, 1),      # odd Ci and Co
+    (2, 9, 5, 256, 3, 3),      # to_rgb's channels
+    (2, 128, 64, 256, 3, 3),   # to_rgb at Market width
+    (1, 5, 3, 16, 1, 3),       # Ci 16, Co 1
+    (3, 11, 70, 48, 7, 3),     # Ci % 32 == 16, Co 7, ragged strip
+    (2, 6, 17, 240, 5, 3),     # Ci % 32 == 16, every warp busy
+    (1, 9, 9, 64, 2, 1),       # 1x1
+    (2, 3, 100, 32, 4, 3)]     # H below a strip
+
+
+@pytest.mark.parametrize("out", S8_OUTS)
+@pytest.mark.parametrize("b,h,w,ci,co,k", S8_NARROW_CASES)
+def test_s8_narrow_routes_are_bit_equal(card, b, h, w, ci, co, k, out):
+    """The narrow_ci and narrow_co routes against the plain version and
+    the mma_sync kernel: 0 differing elements; one launch, counted on its
+    route."""
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    x8, w8, factor, bias = _s8_case(h * 31 + ci + co, b, h, w, ci, co, k,
+                                    card)
+    kw = _s8_out_kwargs(out, sc.out_shape(x8, w8, 1), co, card)
+    route = sc.plan(tuple(x8.shape), tuple(w8.shape), 1).route
+    assert route == ("narrow_co" if co < 8 else "narrow_ci")
+    before, routed = sc.launches, dict(sc.launches_by_route)
+    got = sc.s8_conv(x8, w8, factor, bias, 1, **kw)
+    assert sc.launches == before + 1
+    assert sc.launches_by_route == {**routed, route: routed[route] + 1}
+    want = sc.s8_conv_plain(x8, w8, factor, bias, 1, **kw)
+    older = sc.s8_conv_cuda(x8, w8, factor, bias, 1, route="mma_sync", **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert int((got != want).sum()) == 0
+    assert int((got != older).sum()) == 0
+
+
+def test_s8_narrow_on_a_side_stream_and_in_a_cuda_graph(card):
+    """The Market stem and to_rgb on a non-default stream, and both
+    captured in one CUDA graph replayed twice: the same bytes each
+    time."""
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    cases = []
+    for seed, (ci, co) in enumerate([(18, 128), (256, 3)]):
+        x8, w8, factor, bias = _s8_case(seed, 16, 128, 64, ci, co, 3, card)
+        kw = _s8_out_kwargs("f32" if seed else "bf16-res8", (16, 128, 64, co),
+                            co, card)
+        cases.append((x8, w8, factor, bias, kw))
+    assert [sc.plan(tuple(c[0].shape), tuple(c[1].shape), 1).route
+            for c in cases] == ["narrow_ci", "narrow_co"]
+    want = [sc.s8_conv_plain(*c[:4], **c[4]) for c in cases]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [sc.s8_conv(*c[:4], **c[4]) for c in cases]
+    side.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [sc.s8_conv(*c[:4], **c[4]) for c in cases]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
+
+
+def test_s8_narrow_routes_refuse_bad_inputs(card):
+    """A shape `plan` sends elsewhere, asked of a narrow route, raises;
+    so does an input that is not 16-byte aligned; nothing reroutes."""
+    from dpig_tpu_torch.kernels import s8_conv as sc
+    x8, w8, factor, bias = _s8_case(0, 1, 6, 4, 64, 8, 3, card)  # wgmma
+    before = dict(sc.launches_by_route)
+    for route in ("narrow_ci", "narrow_co"):
+        with pytest.raises(ValueError, match=route):
+            sc.s8_conv_cuda(x8, w8, factor, bias, route=route)
+    x8, w8, factor, bias = _s8_case(0, 1, 6, 4, 18, 128, 3, card)
+    with pytest.raises(ValueError, match="narrow_co"):
+        sc.s8_conv_cuda(x8, w8, factor, bias, route="narrow_co")
+    with pytest.raises(ValueError, match="narrow_ci"):
+        sc.s8_conv_cuda(x8, w8, factor, bias, 2, route="narrow_ci")
+    for ci, co in ((18, 128), (256, 3)):
+        x8, w8, factor, bias = _s8_case(0, 1, 6, 4, ci, co, 3, card)
+        shifted = torch.empty(x8.numel() + 1, dtype=torch.int8,
+                              device=card)[1:].view(x8.shape)
+        shifted.copy_(x8)
+        with pytest.raises(ValueError, match="aligned"):
+            sc.s8_conv_cuda(shifted, w8, factor, bias)
+    assert sc.launches_by_route == before
 
 
 @pytest.mark.parametrize("kw", [

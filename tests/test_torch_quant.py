@@ -144,7 +144,7 @@ def test_kl_threshold_scale_is_jaxs():
 @pytest.mark.parametrize("h,w,ci,co,k,stride", [
     (7, 5, 16, 8, 1, 1), (7, 5, 16, 8, 3, 1), (9, 6, 32, 16, 3, 2),
     (8, 4, 16, 24, 3, 2), (11, 7, 18, 16, 3, 1), (5, 3, 48, 3, 3, 1),
-    (6, 6, 18, 8, 1, 2)])
+    (6, 6, 18, 8, 1, 2), (5, 3, 256, 3, 3, 1)])
 def test_plain_s8_conv_equals_jax_int32_conv(h, w, ci, co, k, stride):
     """The int32 sums bit-equal, odd sizes, stride 2's asymmetric pads,
     Ci = 18; and the epilogue against JAX's float32 graph ops."""

@@ -1,14 +1,18 @@
-"""The s8 conv's routing (`kernels/s8_conv.py:plan`) and the wgmma
-kernel's decomposition (`csrc/s8_conv_sm90.cu`), on the CPU.
+"""The s8 conv's routing (`kernels/s8_conv.py:plan`) and the wgmma and
+narrow kernels' decompositions (`csrc/s8_conv_sm90.cu`,
+`csrc/s8_conv_narrow_ci.cu`, `csrc/s8_conv_narrow_co.cu`), on the CPU.
 
-The kernel itself runs only on the card (tests/test_torch_cuda.py). Here:
+The kernels themselves run only on the card (tests/test_torch_cuda.py).
+Here:
 
 - `int8_batch_calls` lists the s8 convs of one int8 model-12 batch from
   the architecture; at a tiny config it equals the calls the port's int8
   tester makes, and at the Market config (128x64, hidden 128, batch 16,
   7 ROI crops of 48x48) it gives the 60 launches `plan` is checked on:
   every conv with Ci % 64 == 0 and Co >= 8 takes the wgmma route, the
-  pose stem and to_rgb the mma_sync one; a tile grid below the SM count
+  pose stem the narrow_ci one and to_rgb the narrow_co one (at Market
+  batch 8, 16 and 64 and at 256x256 batch 16 too, with their tiles);
+  other narrow shapes keep their routes; a tile grid below the SM count
   gets a split-K factor above 1, whose K ranges cover the K stages
   exactly once; and 127^2 * K stays below 2^31, so any K order and split
   gives the same int32 sum.
@@ -19,6 +23,17 @@ The kernel itself runs only on the card (tests/test_torch_cuda.py). Here:
   split-K partials summed in int32. It must equal the plain version's
   int32 sums for stride 1 and 2, k 1 and 3, Ci 64 (two taps a stage) to
   192 (a stage straddling taps), ragged M and N, split on and off.
+- `emulate_narrow_ci` and `emulate_narrow_co` repeat the narrow kernels'
+  index arithmetic in numpy, tile by tile: narrow_ci's raw row spans
+  (16-byte aligned, the tensor's last chunk cut short), the halo tile
+  built by funnel shifts with each tap's channels padded to 32 and the
+  16-byte halves swapped on every other 4 columns, A read back by the
+  ldmatrix addresses, N padded to a warp's 32; narrow_co's ring rows
+  (pixels padded to an odd number of 16-byte chunks, garbage past them),
+  each warp's k32 chunk, the windows of 16 input pixels times the
+  column taps and the shuffles that shift them onto the output pixels,
+  N padded to 8, the 8 warps' partial sums. Each must equal the plain
+  version's int32 sums on ragged B, H and W.
 - `requant_fast` repeats the kernel's requantization rule (requant8) in
   float32 numpy: q0 = y * inv with inv the reciprocal within 1 ulp (the
   card's rcp.approx), rounded and clipped, the IEEE division taken only
@@ -124,7 +139,8 @@ def test_plan_routes_every_market_shape(call):
     k = w_shape[1] * w_shape[2] * ci
     assert 127 * 127 * k < 2 ** 31
     if ci % 64 or co < 8:
-        assert how.route == "mma_sync" and how.split == 1
+        assert how.split == 1
+        assert how.route == ("narrow_ci" if ci == POSE_CH else "narrow_co")
         assert ci == POSE_CH or co == 3
         return
     assert how.route == "wgmma"
@@ -140,7 +156,48 @@ def test_plan_routes_every_market_shape(call):
 
 def test_plan_sends_all_but_the_stem_and_to_rgb_to_wgmma():
     routes = Counter(sc.plan(*c).route for c in MARKET)
-    assert routes == {"wgmma": 58, "mma_sync": 2}
+    assert routes == {"wgmma": 58, "narrow_ci": 1, "narrow_co": 1}
+
+
+# (batch, H, W): Market batch 8 (a DDP rank), 16 and 64 (the int8 gate),
+# 256x256 batch 16 (models 1001 / 1002) -> the narrow_co strip height
+NARROW_SIZES = {(8, 128, 64): 4, (16, 128, 64): 8, (64, 128, 64): 32,
+                (16, 256, 256): 64}
+
+
+@pytest.mark.parametrize("size", NARROW_SIZES, ids=str)
+def test_plan_sends_the_stem_and_to_rgb_to_the_narrow_routes(size):
+    b, h, w = size
+    stem = sc.plan((b, h, w, POSE_CH), (128, 3, 3, POSE_CH), 1)
+    assert (stem.route, stem.th, stem.tw, stem.bm, stem.bn, stem.stages) \
+        == ("narrow_ci", 2, 64, 128, 128, 9)
+    rgb = sc.plan((b, h, w, 256), (3, 3, 3, 256), 1)
+    assert (rgb.route, rgb.th, rgb.tw, rgb.bn, rgb.stages) \
+        == ("narrow_co", NARROW_SIZES[size], 64, 8, 72)
+    # one wave of the 2 blocks a SM holds, and every strip row covered
+    strips = b * -(-w // rgb.tw) * -(-h // rgb.th)
+    assert strips <= sc.NARROW_SLOTS and rgb.th * -(-h // rgb.th) >= h
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride,route", [
+    ((2, 11, 7, 18), (128, 3, 3, 18), 2, "mma_sync"),  # stride 2
+    ((2, 9, 5, 48), (64, 3, 3, 48), 1, "mma_sync"),    # 48 channels
+    ((2, 9, 5, 33), (64, 3, 3, 33), 1, "mma_sync"),    # Ci > 32
+    ((2, 9, 5, 18), (3, 3, 3, 18), 1, "mma_sync"),     # Ci % 16, Co < 8
+    ((2, 32, 16, 8), (3, 3, 3, 8), 1, "mma_sync"),     # to_rgb at hidden 4
+    ((2, 9, 5, 256), (3, 3, 3, 256), 2, "mma_sync"),   # stride 2
+    ((2, 9, 5, 272), (3, 3, 3, 272), 1, "mma_sync"),   # Ci > 256
+    ((2, 9, 5, 18), (257, 3, 3, 18), 1, "mma_sync"),   # Co > 256
+    ((2, 9, 5, 18), (7, 3, 3, 18), 1, "mma_sync"),     # Co < 8
+    ((2, 9, 5, 32), (256, 1, 1, 32), 1, "narrow_ci"),
+    ((2, 9, 5, 3), (8, 3, 3, 3), 1, "narrow_ci"),
+    ((2, 9, 5, 16), (7, 1, 1, 16), 1, "narrow_co"),
+    ((2, 9, 5, 240), (1, 3, 3, 240), 1, "narrow_co"),
+    ((2, 9, 5, 64), (8, 3, 3, 64), 1, "wgmma"),
+    ((2, 9, 5, 64), (7, 3, 3, 64), 1, "narrow_co")])
+def test_plan_keeps_other_shapes_on_their_routes(x_shape, w_shape, stride,
+                                                route):
+    assert sc.plan(x_shape, w_shape, stride).route == route
 
 
 @pytest.mark.parametrize("co,bn", [(72, 128), (128, 128), (200, 256),
@@ -219,6 +276,199 @@ def test_split_ranges_are_the_kernels():
             assert all(a < b for a, b in r)
             assert all(r[i][1] == r[i + 1][0] for i in range(split - 1))
             assert sum(b - a for a, b in r) == stages
+
+
+def _pads(h, w, ks):
+    return same_pads(h, ks, 1)[0], same_pads(w, ks, 1)[0]
+
+
+def emulate_narrow_ci(x8, w8, how):
+    """The int32 sums [B,H,W,Co] as the narrow_ci kernel forms them."""
+    b, h, w, ci = x8.shape
+    co, ks = w8.shape[0], w8.shape[1]
+    th, tw = how.th, how.tw
+    pad_t, pad_l = _pads(h, w, ks)
+    ncb, nrb = -(-w // tw), -(-h // th)
+    hh, hw = th + ks - 1, tw + ks - 1
+    raw_row = (hw * ci + 15 + 48 + 15) // 16 * 16
+    xb = x8.reshape(-1).numpy().view(np.uint8)
+    cw = -(-co // 32)
+    wb = np.zeros((cw * 32, ks * ks, 32), np.int64)
+    wb[:co, :, :ci] = w8.reshape(co, ks * ks, ci).numpy()
+    acc = np.zeros((b, h, w, co), np.int64)
+    rng = np.random.default_rng(1)
+    for t in range(b * nrb * ncb):
+        ow0, oh0, bb = (t % ncb) * tw, (t // ncb % nrb) * th, t // ncb // nrb
+        raw = rng.integers(0, 256, (hh, raw_row), dtype=np.uint8)  # stale
+        los = []
+        for hr in range(hh):  # load_raw / raw_span
+            ih = oh0 - pad_t + hr
+            c0, c1 = max(ow0 - pad_l, 0), min(ow0 - pad_l + hw, w)
+            los.append(0)
+            if ih < 0 or ih >= h or c0 >= c1:
+                continue
+            row = (bb * h + ih) * w
+            lo = ((row + c0) * ci) & ~15
+            n = ((row + c1) * ci - lo + 15) >> 4
+            assert 16 * n + 48 <= raw_row
+            for q in range(n):
+                got = xb[lo + 16 * q:min(lo + 16 * q + 16, xb.size)]
+                raw[hr, 16 * q:16 * q + 16] = 0
+                raw[hr, 16 * q:16 * q + got.size] = got
+            los[hr] = lo
+        halo = np.zeros(hh * hw * 32, np.uint8)
+        for i in range(hh * hw):  # expand
+            hr, hc = divmod(i, hw)
+            ih, iw = oh0 - pad_t + hr, ow0 - pad_l + hc
+            v = [0] * 8
+            if 0 <= ih < h and 0 <= iw < w:
+                off = ((bb * h + ih) * w + iw) * ci - los[hr]
+                words = raw[hr].view("<u4").astype(np.uint64)
+                sh = (off & 3) * 8
+                for k in range(8):
+                    wd = int(((words[off // 4 + k + 1] << np.uint64(32))
+                              | words[off // 4 + k]) >> np.uint64(sh))
+                    nb = ci - 4 * k
+                    v[k] = (wd & 0xFFFFFFFF if nb >= 4 else 0 if nb <= 0
+                            else wd & ((1 << (8 * nb)) - 1))
+            half = np.array(v, "<u4").view(np.uint8)
+            swap = (hc >> 2) & 1
+            base = i * 32
+            halo[base + 16 * swap:base + 16 * swap + 16] = half[:16]
+            halo[base + 16 * (1 - swap):base + 16 * (1 - swap) + 16] = \
+                half[16:]
+        for mt in range(th * (tw // 16)):  # compute, ldmatrix addresses
+            r, c0 = divmod(mt, tw // 16)
+            c0 *= 16
+            if oh0 + r >= h or ow0 + c0 >= w:
+                continue
+            part = np.zeros((16, cw * 32), np.int64)
+            for tap in range(ks * ks):
+                hc = c0 + np.arange(16) + tap % ks
+                hrow = r + tap // ks
+                a = np.zeros((16, 32), np.int64)
+                for hf in range(2):
+                    addr = (hrow * hw + hc) * 32 + ((hf ^ ((hc >> 2) & 1))
+                                                     << 4)
+                    idx = addr[:, None] + np.arange(16)
+                    a[:, 16 * hf:16 * hf + 16] = halo[idx].view(np.int8)
+                part += a @ wb[:, tap, :].T
+            nv = min(16, w - ow0 - c0)
+            acc[bb, oh0 + r, ow0 + c0:ow0 + c0 + nv] = part[:nv, :co]
+    return torch.from_numpy(acc).to(torch.int32)
+
+
+def _regs(x, gid, tig):
+    """An m16n8 int32 tile's accumulator registers of lane (gid, tig)."""
+    return [x[gid, 2 * tig], x[gid, 2 * tig + 1], x[gid + 8, 2 * tig],
+            x[gid + 8, 2 * tig + 1]]
+
+
+def shifted(x, xn, s):
+    """narrow_co's `shifted<S>`: each lane's registers taken by shuffle
+    from lane gid + S (mod 8) of x and xn -> the tile of rows g + S."""
+    y = np.zeros_like(x)
+    for gid in range(8):
+        for tig in range(4):
+            src = ((gid * 4 + tig) + 4 * s) & 31
+            a = _regs(x, src >> 2, src & 3)
+            n = _regs(xn, src >> 2, src & 3)
+            wrap = gid + s >= 8
+            out = ([a[2], a[3], n[0], n[1]] if wrap else a)
+            y[gid, 2 * tig], y[gid, 2 * tig + 1] = out[0], out[1]
+            y[gid + 8, 2 * tig], y[gid + 8, 2 * tig + 1] = out[2], out[3]
+    return y
+
+
+def emulate_narrow_co(x8, w8, how):
+    """The int32 sums [B,H,W,Co] as the narrow_co kernel forms them."""
+    b, h, w, ci = x8.shape
+    co, ks = w8.shape[0], w8.shape[1]
+    th, tw = how.th, how.tw
+    pad_t, pad_l = _pads(h, w, ks)
+    ncb, nrb = -(-w // tw), -(-h // th)
+    kst, hw = -(-ci // 32), tw + ks - 1
+    pitch = ci if (ci // 16) % 2 else ci + 16
+    n_win = (tw + ks - 1 + 15) >> 4
+    xn = x8.numpy()
+    wb = np.zeros((8, ks * ks, kst * 32), np.int64)
+    wb[:co, :, :ci] = w8.reshape(co, ks * ks, ci).numpy()
+    acc = np.zeros((b, h, w, co), np.int64)
+    rng = np.random.default_rng(2)
+    for t in range(b * nrb * ncb):
+        ow0, oh0, bb = (t % ncb) * tw, (t // ncb % nrb) * th, t // ncb // nrb
+        rows = []
+        for i in range(min(th, h - oh0) + ks - 1):  # load_row
+            ih = oh0 - pad_t + i
+            buf = rng.integers(-128, 128, n_win * 16 * pitch + 32,
+                               dtype=np.int64)  # garbage past the pixels
+            for hc in range(hw):
+                iw = ow0 - pad_l + hc
+                ok = 0 <= ih < h and 0 <= iw < w
+                buf[hc * pitch:hc * pitch + ci] = xn[bb, ih, iw] if ok else 0
+            rows.append(buf)
+        for j in range(min(th, h - oh0)):
+            part = np.zeros((8, tw, 8), np.int64)
+            for warp in range(8):
+                d = np.zeros((n_win, ks, 16, 8), np.int64)
+                if warp < kst:  # warp w takes k32 chunk w (kst <= 8)
+                    for kr in range(ks):
+                        buf = rows[j + kr]
+                        for m in range(n_win):
+                            px = 16 * m + np.arange(16)
+                            idx = (px * pitch + warp * 32)[:, None] + \
+                                np.arange(32)
+                            a = buf[idx]
+                            for kc in range(ks):
+                                d[m, kc] += a @ wb[:, kr * ks + kc,
+                                                   warp * 32:
+                                                   warp * 32 + 32].T
+                for m in range(tw // 16):
+                    o = d[m, 0].copy()
+                    if ks == 3:
+                        o += shifted(d[m, 1], d[m + 1, 1], 1)
+                        o += shifted(d[m, 2], d[m + 1, 2], 2)
+                    part[warp, 16 * m:16 * m + 16] = o
+            nv = min(tw, w - ow0)
+            acc[bb, oh0 + j, ow0:ow0 + nv] = part.sum(0)[:nv, :co]
+    return torch.from_numpy(acc).to(torch.int32)
+
+
+def _case(seed, b, h, w, ci, co, k):
+    g = torch.Generator().manual_seed(seed)
+    x8 = torch.randint(-127, 128, (b, h, w, ci), generator=g,
+                       dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (co, k, k, ci), generator=g,
+                       dtype=torch.int8)
+    return x8, w8
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,k", [
+    (2, 5, 70, 18, 128, 3),   # two column tiles, the second ragged
+    (3, 7, 9, 3, 40, 3),      # tw 16 > W; Co past a warp's 32
+    (1, 3, 20, 32, 200, 3),   # Co > 128: 64-pixel tiles
+    (2, 4, 17, 5, 8, 1),      # 1x1, odd Ci: raw spans off 16 bytes
+    (2, 6, 33, 18, 16, 3)])
+def test_emulated_narrow_ci_equals_the_plain_sums(b, h, w, ci, co, k):
+    x8, w8 = _case(ci * 7 + co, b, h, w, ci, co, k)
+    how = sc.plan(x8.shape, w8.shape, 1)
+    assert how.route == "narrow_ci"
+    assert torch.equal(emulate_narrow_ci(x8, w8, how),
+                       sc.conv_acc_plain(x8, w8, 1))
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,k", [
+    (2, 5, 70, 256, 3, 3),    # to_rgb's channels; a ragged second strip
+    (3, 6, 9, 48, 7, 3),      # Ci % 32 == 16: the last chunk reads past
+    (1, 4, 20, 240, 5, 3),    # Ci % 32 == 16 with every warp busy
+    (2, 5, 33, 16, 1, 1),     # 1x1
+    (2, 9, 17, 64, 2, 3)])
+def test_emulated_narrow_co_equals_the_plain_sums(b, h, w, ci, co, k):
+    x8, w8 = _case(ci * 7 + co, b, h, w, ci, co, k)
+    how = sc.plan(x8.shape, w8.shape, 1)
+    assert how.route == "narrow_co"
+    assert torch.equal(emulate_narrow_co(x8, w8, how),
+                       sc.conv_acc_plain(x8, w8, 1))
 
 
 def requant_fast(y, os_, inv):
