@@ -52,7 +52,9 @@ Phases, each printing one line; any failure exits non-zero:
               exceed it. Where the check fails, the phase fails, after
               printing the CPU reference step against the CPU's float64
               step and each side's float32 step against a float64 step
-              (which side moved, ROADMAP §3).
+              (which side moved, ROADMAP §3: the card's, when cuDNN's
+              float32 backward of the D's Conv_1 went wrong, before the
+              DCGAN D's convs left cuDNN).
 
   8. sampling  through the CLI entry point at full Market width, cold
               start: model 11 (`--model=11 --sample_app=true
@@ -244,6 +246,32 @@ Phases, each printing one line; any failure exits non-zero:
               `check` at batch 2 on the card and on the CPU from one
               checkpoint, its four SSIM numbers within half the CPU's
               int8-vs-float SSIM gap.
+24. convert  the dataset converters (`python -m
+              dpig_tpu_torch.data.convert.run`) on this host at full width,
+              on seeded JPEGs and OpenPose pickles: Market 128x64 (train
+              with its flip shard, test), DeepFashion 256x256 (with
+              roi10_mask) and the rcv converter on a MaskRCNN-remapped
+              pickle, host ms per converted pair; every record read and
+              parsed natively and plainly alike; the Market test split's
+              batches equal with 0 workers, LOADER_WORKERS threads and 2
+              processes; models 1 (CONVERT_STEPS steps, full Config()
+              width) and 12 (CONVERT_TEST_BATCHES batches) through the CLI
+              on the converted Market records and one model-101 step at
+              batch DF_TRAIN_BATCH on the DeepFashion ones, each path's
+              pose launches as the phases above count them.
+25. pipeline `python -m dpig_tpu_torch.apps.pipeline_demo <dir>
+              PIPELINE_SCALE` on the card: stick people drawn, converted,
+              models 1 -> 2 -> 3 -> 4 trained on the port's checkpoints,
+              testers 12 / 11 / 13, scored; results.json printed; wall ms
+              per step of each stage; pose launches of each stage and
+              tester, each > 0; the Stage-I L1 must fall.
+26. critic ab `python -m dpig_tpu_torch.apps.critic_batch_ab` on the card,
+              CRITIC_AB_STEPS steps of batch CRITIC_AB_BATCH a mode (the W
+              tails and moment gaps printed; the A/B renders no pose
+              map: its launches are counted, 0), then 3 steps of batch 4
+              of each mode on the card and on the CPU from one seed, each
+              W tail within STAGE2_PARITY_TOL absolute and each moment gap
+              within it relative.
 
 The line before the last is {"kernels": [...]}: the pose kernel with its
 launches on each path, and the s8 conv's four routes (wgmma, narrow_ci,
@@ -263,7 +291,9 @@ import contextlib
 import functools
 import io
 import json
+import math
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -3599,6 +3629,292 @@ def phase_quality(tmp, df_entries):
     return pose_by_path, s8_by_path, entries
 
 
+# ------------------------------------------------ converters, demo, A/B
+CONVERT_IDS, CONVERT_CAMS, CONVERT_PER_CAM = 8, 2, 6
+CONVERT_DF_IDS, CONVERT_DF_PER_ID = 3, 4
+CONVERT_MAX_PAIRS = 48        # Market train (x2 with the flip) and test
+CONVERT_RCV_PAIRS = 24
+CONVERT_STEPS, CONVERT_TEST_BATCHES = 3, 2
+PIPELINE_SCALE = 0.05         # steps_scale of apps/pipeline_demo.py
+CRITIC_AB_STEPS, CRITIC_AB_BATCH = 30, 16
+CRITIC_AB_PARITY_STEPS, CRITIC_AB_PARITY_BATCH = 3, 4
+
+
+def _openpose_set(root, rng, names, h, w, df=False):
+    """JPEGs of noise and OpenPose pickles for `names`, as
+    tests/test_convert.py:70-95 writes them (one subset per image, its
+    ids 0..17, score 1): with two keypoints missing in every third image,
+    and one image without peaks. -> (img_dir, pose_dir)."""
+    img_dir, pose_dir = os.path.join(root, "imgs"), os.path.join(root,
+                                                                  "pose")
+    os.makedirs(img_dir)
+    os.makedirs(pose_dir)
+    from PIL import Image
+    all_peaks, subsets = {}, {}
+    for i, n in enumerate(names):
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+                        ).save(os.path.join(img_dir, n))
+        if i == 1:
+            continue
+        all_peaks[n] = [[] if (i % 3 == 0 and k in (9, 10)) else
+                        [(float(rng.integers(2, w - 2)),
+                          float(rng.integers(2, h - 2)), 0.9, k)]
+                        for k in range(18)]
+        s = np.zeros((1, 20))
+        s[0, :18] = np.arange(18)
+        s[0, -2] = 1.0
+        subsets[n] = s
+    tag = "_DeepFashion" if df else ""
+    for stem, obj in (("all_peaks_dic", all_peaks), ("subsets_dic", subsets)):
+        with open(os.path.join(pose_dir, f"{stem}{tag}.p"), "wb") as f:
+            pickle.dump(obj, f, protocol=2)
+    return img_dir, pose_dir
+
+
+def _records_agree(dataset_dir, h, w, keys) -> tuple:
+    """Every record of every shard: the native scanner (CRCs verified in
+    C++) equal to the plain reader, tfr_parse bit-equal to the plain
+    decoder. The plain reader's Python CRC is left to `[data]`: over the
+    256x256 records it took ~28 s of this phase's ~54."""
+    from dpig_tpu_torch.data import loader as dl
+    from dpig_tpu_torch.data import tfrecord
+    n, failures = 0, []
+    for path in tfrecord.list_shards(dataset_dir, ""):
+        records = list(tfrecord.read_records(path, verify_crc=True))
+        if records != list(tfrecord.read_records(path, native_scan=False)):
+            failures.append(f"native and plain readers differ on {path}")
+        for rec in records:
+            if not _same_batches(
+                    [dl.parse_example(rec, h, w, parser="native", **keys)],
+                    [dl.parse_example(rec, h, w, parser="plain", **keys)]):
+                failures.append(f"{path} record {n}: tfr_parse and the "
+                                "plain decoder differ")
+            n += 1
+    return n, failures
+
+
+def phase_convert(tmp):
+    """Phase 24: the dataset converters (`python -m
+    dpig_tpu_torch.data.convert.run`) on this host at full width: Market
+    128x64 (train with its flip shard, test), DeepFashion 256x256 (its
+    region masks) and the rcv converter on a MaskRCNN-remapped pickle;
+    every record read and parsed natively and plainly alike; the test
+    split's batches equal in every worker mode; then models 1 and 12
+    through the CLI on the Market records and one model-101 step on the
+    DeepFashion ones -> pose launches by path."""
+    from dpig_tpu_torch.config import Config
+    from dpig_tpu_torch.data import loader as dl
+    from dpig_tpu_torch.data import pose_tools as pt
+    from dpig_tpu_torch.data.convert import run as convert
+
+    rng = np.random.default_rng(15)
+    root = os.path.join(tmp, "convert")
+    data_dir = os.path.join(root, "data")
+    names = [f"{pid:04d}_c{cam}s1_{pid * 100 + cam * 10 + j:06d}_00.jpg"
+             for pid in range(1, CONVERT_IDS + 1)
+             for cam in range(1, CONVERT_CAMS + 1)
+             for j in range(CONVERT_PER_CAM)]
+    market = _openpose_set(os.path.join(root, "market"), rng, names,
+                           MARKET["h"], MARKET["w"])
+    df_names = [f"id{pid:08d}_{j:02d}_{j % 4 + 1}_front.jpg"
+                for pid in range(CONVERT_DF_IDS)
+                for j in range(CONVERT_DF_PER_ID)]
+    df = _openpose_set(os.path.join(root, "df"), rng, df_names, 256, 256,
+                       df=True)
+    rcv_pkl = os.path.join(root, "rcv.p")
+    rcv = {}
+    for n in names:
+        crs = np.stack([rng.integers(2, MARKET["w"] - 2, 17),
+                        rng.integers(2, MARKET["h"] - 2, 17)]).astype(float)
+        crs[:, rng.choice(17, 2, replace=False)] = 0  # undetected joints
+        rcv[n] = pt.maskrcnn_to_openpose_rcv(crs)
+    with open(rcv_pkl, "wb") as f:
+        pickle.dump(rcv, f, protocol=2)
+
+    runs = {"market train": ("market", *market, "Market1501",
+                             dict(split="train", max_pairs=CONVERT_MAX_PAIRS)),
+            "market test": ("market", *market, "Market1501",
+                            dict(split="test", max_pairs=CONVERT_MAX_PAIRS)),
+            "df train": ("df", *df, "DF", dict(split="train")),
+            "rcv train": ("rcv", market[0], rcv_pkl, "RCV",
+                          dict(split="train", flip_augment=False,
+                               max_pairs=CONVERT_RCV_PAIRS))}
+    written = {}
+    for label, (kind, img_dir, pose, out, kw) in runs.items():
+        t0 = time.perf_counter()
+        n = convert.run(kind, img_dir, pose, os.path.join(data_dir, out),
+                        **kw)
+        sec = time.perf_counter() - t0
+        written[label] = n
+        print(f"[convert] {label}: {n} records (flip shard included for "
+              f"train) in {sec:.2f} s, {sec * 1e3 / n:.2f} host ms per "
+              f"converted pair", flush=True)
+    sizes = {"Market1501": (MARKET["h"], MARKET["w"], dl.MARKET_KEYS),
+             "DF": (256, 256, dl.DF_KEYS),
+             "RCV": (MARKET["h"], MARKET["w"], dl.MARKET_KEYS)}
+    failures, n_records = [], 0
+    for out, (h, w, keys) in sizes.items():
+        n, bad = _records_agree(os.path.join(data_dir, out), h, w, keys)
+        n_records += n
+        failures += bad
+    if n_records != sum(written.values()):
+        failures.append(f"{n_records} records read, "
+                        f"{sum(written.values())} written")
+    print(f"[convert] {n_records} records: CRCs verified by the native "
+          f"scanner, the records equal to the plain reader's, tfr_parse bit-equal to the "
+          f"plain decoder on every key: {not failures}", flush=True)
+
+    ds = os.path.join(data_dir, "Market1501")
+
+    def test_split(workers, mode):
+        return dl.TFRecordPairLoader(ds, "test", 16, MARKET["h"],
+                                     MARKET["w"], dataset="Market1501",
+                                     shuffle=False, num_workers=workers,
+                                     worker_mode=mode)
+
+    ref = _drain(test_split(0, "thread"))
+    same = {f"{n} {m}": _same_batches(_drain(test_split(n, m)), ref)
+            for n, m in ((LOADER_WORKERS, "thread"), (2, "process"))}
+    print(f"[convert] Market test split: {len(ref)} batches of 16, "
+          f"identical in order with 0 workers and {same}", flush=True)
+    if len(ref) != written["market test"] // 16 or not all(same.values()):
+        failures.append(f"test split batches {len(ref)}, {same}")
+
+    common = [f"--data_dir={data_dir}", f"--num_worker={LOADER_WORKERS}"]
+    cli = {"model 1 on converted records": (
+               ["--model=1", "--dataset=Market1501",
+                f"--max_step={CONVERT_STEPS}", "--log_step=1"],
+               _expected_train_launches(Config(max_step=CONVERT_STEPS,
+                                               log_step=1))),
+           "model 12 on converted records": (
+               ["--model=12", "--is_train=false", "--dataset=Market1501",
+                f"--test_batch_num={CONVERT_TEST_BATCHES}"],
+               2 * CONVERT_TEST_BATCHES),
+           "model 101 on converted DeepFashion records": (
+               ["--model=101", "--dataset=DF", "--img_H=256", "--img_W=256",
+                f"--batch_size={DF_TRAIN_BATCH}", "--max_step=1",
+                "--log_step=1"],
+               _expected_train_launches(Config(max_step=1, log_step=1)))}
+    launches = {}
+    for i, (path, (argv, want)) in enumerate(cli.items()):
+        got, wall = _run_cli([*argv, *common,
+                              f"--model_dir={root}/cli{i}"])
+        launches[path] = got
+        print(f"[convert] {path} (CLI, {' '.join(argv)}): wall {wall:.1f} "
+              f"s, pose kernel launches {got} (expected {want})",
+              flush=True)
+        if got != want:
+            failures.append(f"{path}: {got} pose launches, expected {want}")
+    if failures:
+        raise AssertionError("[convert] " + "; ".join(failures))
+    return launches
+
+
+def phase_pipeline(tmp):
+    """Phase 25: `python -m dpig_tpu_torch.apps.pipeline_demo` on the card
+    at steps_scale PIPELINE_SCALE: stick people drawn, converted, models
+    1 -> 2 -> 3 -> 4 trained, testers 12 / 11 / 13, scored; results.json
+    printed, the Stage-I L1 must fall; wall ms per step of each stage and
+    pose launches of each stage and tester -> launches by path."""
+    from dpig_tpu_torch.apps import pipeline_demo, testers
+    from dpig_tpu_torch.kernels import pose_raster
+    from dpig_tpu_torch.train.harness import Trainer
+
+    record = {}
+
+    def counted(fn, path_of):
+        def run(self, *args, **kw):
+            torch.cuda.synchronize()
+            pose_raster.launches = 0
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                record[path_of(self)] = (pose_raster.launches,
+                                         time.perf_counter() - t0,
+                                         self.cfg.max_step)
+        return run
+
+    patched = [(Trainer, "train", lambda t: f"pipeline model {t.cfg.model}")]
+    patched += [(cls, "run", lambda t: f"pipeline tester {t.cfg.model}")
+                for cls in (testers.ConditionalTransferTester,
+                            testers.FullSamplingTester,
+                            testers.FactorSamplingTester)]
+    originals = [(cls, name, getattr(cls, name)) for cls, name, _ in patched]
+    for cls, name, path_of in patched:
+        setattr(cls, name, counted(getattr(cls, name), path_of))
+    root = os.path.join(tmp, "pipeline")
+    t0 = time.perf_counter()
+    try:
+        results = pipeline_demo.main([root, str(PIPELINE_SCALE)])
+    finally:
+        for cls, name, fn in originals:
+            setattr(cls, name, fn)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(root, "results.json")) as f:
+        print(f"[pipeline] results.json: {json.dumps(json.load(f))}",
+              flush=True)
+    for path, (n, sec, steps) in record.items():
+        per = (f", {sec * 1e3 / steps:.2f} wall ms per step (the fixed "
+               f"previews and the final checkpoint included)"
+               if "model" in path else "")
+        print(f"[pipeline] {path}: {sec:.2f} s{per}, {steps or '-'} steps, "
+              f"pose kernel launches {n}", flush=True)
+    print(f"[pipeline] steps_scale {PIPELINE_SCALE}: the whole demo in "
+          f"{wall:.1f} s; Stage-I L1 {results['stage1_first_L1']:.4f} -> "
+          f"{results['stage1_final_L1']:.4f}, transfer SSIM "
+          f"{results['ssim_G_x_mean']:.4f}", flush=True)
+    launches = {p: n for p, (n, _, _) in record.items()}
+    if len(record) != 7 or not all(launches.values()):
+        raise AssertionError(f"[pipeline] pose launches by path {launches}")
+    if not all(math.isfinite(v) for v in results.values()) or not (
+            results["stage1_final_L1"] < results["stage1_first_L1"]):
+        raise AssertionError(f"[pipeline] results {results}")
+    return launches
+
+
+def phase_critic_ab():
+    """Phase 26: `python -m dpig_tpu_torch.apps.critic_batch_ab` on the
+    card, CRITIC_AB_STEPS steps of batch CRITIC_AB_BATCH in each mode (the
+    W tails and moment gaps printed), then 3 steps of batch 4 in each mode
+    on the card and on the CPU from the same seed: each W tail within
+    STAGE2_PARITY_TOL absolute, each moment gap within it relative ->
+    pose launches (the A/B renders no pose map)."""
+    from dpig_tpu_torch.apps import critic_batch_ab as ab
+    from dpig_tpu_torch.kernels import pose_raster
+
+    pose_raster.launches = 0
+    t0 = time.perf_counter()
+    res = ab.main([str(CRITIC_AB_STEPS), str(CRITIC_AB_BATCH), "0"])
+    torch.cuda.synchronize()
+    launches = pose_raster.launches
+    print(f"[critic ab] {CRITIC_AB_STEPS} steps of batch {CRITIC_AB_BATCH} "
+          f"a mode on the card in {time.perf_counter() - t0:.1f} s: " +
+          "; ".join(f"{m} " + ", ".join(f"{k} {v:.5f}" for k, v in r.items())
+                    for m, r in res.items()) +
+          f"; pose kernel launches {launches}", flush=True)
+    diffs = {}
+    for mode in ("reused", "fresh"):
+        card = ab.run(mode, CRITIC_AB_PARITY_STEPS, CRITIC_AB_PARITY_BATCH)
+        cpu = ab.run(mode, CRITIC_AB_PARITY_STEPS, CRITIC_AB_PARITY_BATCH,
+                     platform="cpu")
+        diffs[mode] = {k: abs(card[k] - v) / (1.0 if k.startswith("W_")
+                                              else abs(v))
+                       for k, v in cpu.items()}
+    print(f"[critic ab] card vs CPU, {CRITIC_AB_PARITY_STEPS} steps of "
+          f"batch {CRITIC_AB_PARITY_BATCH}, same seed (W tails: abs diff; "
+          f"gaps: relative): " + "; ".join(
+              f"{m} " + ", ".join(f"{k} {v:.2e}" for k, v in d.items())
+              for m, d in diffs.items()) +
+          f"; tolerance {STAGE2_PARITY_TOL}", flush=True)
+    if any(v > STAGE2_PARITY_TOL for d in diffs.values() for v in d.values()):
+        raise AssertionError("[critic ab] card and CPU disagree")
+    if any(not math.isfinite(v) for r in res.values() for v in r.values()):
+        raise AssertionError(f"[critic ab] {res}")
+    return {"critic A/B (both modes)": launches}
+
+
 def _timed(phase):
     """`phase`, printing the seconds each call of it took."""
     @functools.wraps(phase)
@@ -3648,11 +3964,15 @@ def main() -> int:
         ddp_pose, ddp_s8, ddp_entries = phase_ddp(tmp)
         phase_score(os.path.join(tmp, "m12"))
         q_pose, q_s8, q_entries = phase_quality(tmp, df_entries)
+        converted = phase_convert(tmp)
+        pipeline = phase_pipeline(tmp)
+        critic_ab = phase_critic_ab()
     by_path = {"model 12 transfer": model12, **sampling,
                "model 1 training": train, **stage2, **data, **bf16,
                **int8_pose, **df_train, **df_pose, **modes, **ddp_pose,
-               **q_pose}
-    for path in (*df_train, *df_pose, *modes, *q_pose):
+               **q_pose, **converted, **pipeline, **critic_ab}
+    for path in (*df_train, *df_pose, *modes, *q_pose, *converted,
+                 *pipeline):
         if not by_path[path]:
             raise AssertionError(f"the pose kernel was not launched on "
                                  f"{path}")

@@ -12,7 +12,6 @@ OpenPose peaks (the reference took them from the training queue).
 from __future__ import annotations
 
 import os
-import pickle
 from typing import Dict, Optional
 
 import numpy as np
@@ -56,11 +55,6 @@ def pair_batch(img_a: np.ndarray, peaks_a, peaks_b, h: int, w: int
             "part_vis": np.asarray(vis_a, np.int32)[None]}
 
 
-def _load_pickle(path: str):
-    with open(path, "rb") as f:
-        return pickle.load(f, encoding="latin1")
-
-
 def run_one_by_one(cfg: Config, img_dir: str, pair_path: str,
                    all_peaks_path: str, subsets_path: str,
                    pair_num: int = 500, shuffle: bool = True,
@@ -74,9 +68,9 @@ def run_one_by_one(cfg: Config, img_dir: str, pair_path: str,
     its number (demo.py:57-64). `tester` (default: a
     ConditionalTransferTester built from `cfg`) gives the weights and the
     device. The pickles come from the user and are trusted, as in JAX."""
-    pairs = _load_pickle(pair_path)
-    all_peaks_dic = _load_pickle(all_peaks_path)
-    subsets_dic = _load_pickle(subsets_path)
+    pairs = pt.load_py2_pickle(pair_path)
+    all_peaks_dic = pt.load_py2_pickle(all_peaks_path)
+    subsets_dic = pt.load_py2_pickle(subsets_path)
     if shuffle:
         idx_all = np.random.RandomState(0).permutation(len(pairs))
     else:

@@ -1,7 +1,8 @@
 """The tf.Example wire format without protobuf: the plain version of the
 native parser (`csrc/tfrecord_scanner.cc:tfr_parse`) and an encoder, with
-`build_pair_example`, the counterpart of
-`dpig_tpu/data/convert/builder.py:33`.
+`build_pair_example`, the one assembly of the pair schema's features
+(the counterpart of `dpig_tpu/data/convert/builder.py:33`, whose
+peaks-to-masks half is `data/convert/builder.py`).
 
 Wire layout (tensorflow/core/example/example.proto + feature.proto):
   Example     { Features features = 1; }
@@ -22,11 +23,11 @@ duplicated key wins) and the C++ parser's own for the rest.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import pose_tools as pt
 from .native import Feature
 
 _U64 = (1 << 64) - 1
@@ -286,6 +287,21 @@ def _varint(v: int) -> bytes:
     return bytes(out)
 
 
+def _varints(vals: np.ndarray) -> bytes:
+    """`_varint` of each int64, concatenated, in numpy: seven bits a byte,
+    the high bit set on all but a value's last byte, negatives as their
+    64-bit two's complement (ten bytes)."""
+    u = vals.view(np.uint64)
+    shifts = np.arange(10, dtype=np.uint64) * np.uint64(7)
+    groups = (u[:, None] >> shifts) & np.uint64(0x7F)
+    n = np.maximum(1, 10 - np.argmax(
+        (u[:, None] >> shifts)[:, ::-1] != 0, axis=1))
+    n[u == 0] = 1
+    k = np.arange(10)
+    groups |= np.where(k < n[:, None] - 1, 0x80, 0).astype(np.uint64)
+    return groups[k < n[:, None]].astype(np.uint8).tobytes()
+
+
 def _field(number: int, payload: bytes) -> bytes:
     """A length-delimited field."""
     return _varint(number << 3 | 2) + _varint(len(payload)) + payload
@@ -306,7 +322,7 @@ def _encode_feature(kind: str, values) -> bytes:
                 vals.min() >= 0 and vals.max() < 0x80):
             packed = vals.astype(np.uint8).tobytes()  # one byte each
         else:
-            packed = b"".join(_varint(int(v)) for v in vals)
+            packed = _varints(vals.astype(np.int64))
         return _field(3, _field(1, packed) if vals.size else b"")
     raise ValueError(f"unknown feature kind {kind!r}")
 
@@ -320,24 +336,6 @@ def encode_example(features: Mapping[str, Tuple[str, object]]) -> bytes:
     return _field(1, entries)
 
 
-def _sparse_pose_r4(peaks, height: int, width: int,
-                    keypoint_num: int) -> Tuple[list, list]:
-    """The radius-4 'Solid' sparse pose, flattened row-major (the JAX
-    package's `pose_tools.get_sparse_pose` + `one_dim_sparse`)."""
-    radius, ind = 4, []
-    for k, p in enumerate(peaks):
-        if len(p) == 0:
-            continue
-        r, c = int(p[0][1]), int(p[0][0])
-        for i in range(-radius, radius + 1):
-            for j in range(-radius, radius + 1):
-                if (0 <= r + i < height and 0 <= c + j < width
-                        and math.sqrt(float(i ** 2 + j ** 2)) <= radius):
-                    ind.append((r + i) * keypoint_num * width
-                               + (c + j) * keypoint_num + k)
-    return ind, [1] * len(ind)
-
-
 def build_pair_example(
     *,
     name_0: str, name_1: str,
@@ -347,18 +345,27 @@ def build_pair_example(
     label: int, id_0: int, id_1: int, cam_0: int = 0, cam_1: int = 0,
     masks_0: Mapping[str, np.ndarray], masks_1: Mapping[str, np.ndarray],
     part_bbox_0, part_vis_0, part_bbox_1, part_vis_1,
+    roi10_0: Optional[np.ndarray] = None,
+    roi10_1: Optional[np.ndarray] = None,
     attrs_0: Optional[Sequence[int]] = None,
     attrs_1: Optional[Sequence[int]] = None,
+    attrs_w2v_0: Optional[Mapping[int, Sequence[float]]] = None,
+    attrs_w2v_1: Optional[Mapping[int, Sequence[float]]] = None,
     keypoint_num: int = 18,
     image_format: str = "jpg",
 ) -> Optional[bytes]:
     """One pair record of the published schema, or None if a pose is
-    missing: the features of the JAX package's `build_pair_example`,
-    whose parse equals it. Peaks are OpenPose's, one list per keypoint,
-    `[[x, y, ...]]` or `[]`. The masks ({feature key: [H, W] array},
-    e.g. 'pose_mask_r4' and 'pose_mask_r6' for Market), the 37 part bboxes
-    and their visibility come from the caller: the JAX package computes
-    them from the peaks with `data/pose_tools.py`, not ported."""
+    missing: the one place the port assembles the schema's features, those
+    of the JAX package's `build_pair_example`
+    (`dpig_tpu/data/convert/builder.py:33`), whose parse equals it. Peaks
+    are OpenPose's, one list per keypoint, `[[x, y, ...]]` or `[]`; the
+    rcv coordinates, the 16x8 grid and the radius-4 sparse pose come from
+    them here. The masks ({feature key: [H, W] array}, e.g.
+    'pose_mask_r4' and 'pose_mask_r6' for Market), the 37 part bboxes and
+    their visibility, DeepFashion's [H, W, 10] `roi10` masks and the
+    word2vec attributes ({dim: floats}) come from the caller: the
+    converter (`data/convert/builder.py`) computes them from the peaks,
+    `data/synthetic.py` passes its fixtures'."""
     if peaks_0 is None or peaks_1 is None:
         return None
     f = {"image_name_0": ("bytes", [name_0.encode()]),
@@ -373,10 +380,12 @@ def build_pair_example(
          "image_width": ("int64", [width]), "real_data": ("int64", [1]),
          "attrs_0": ("int64", attrs_0 if attrs_0 is not None else [0] * 27),
          "attrs_1": ("int64", attrs_1 if attrs_1 is not None else [0] * 27)}
-    shape_flat = height * width * keypoint_num
-    for suffix, peaks, masks, bbox, vis in (
-            ("_0", peaks_0, masks_0, part_bbox_0, part_vis_0),
-            ("_1", peaks_1, masks_1, part_bbox_1, part_vis_1)):
+    for suffix, w2v in (("_0", attrs_w2v_0), ("_1", attrs_w2v_1)):
+        for dim, vals in (w2v or {}).items():
+            f[f"attrs_w2v{dim}{suffix}"] = ("float", vals)
+    for suffix, peaks, masks, bbox, vis, roi10 in (
+            ("_0", peaks_0, masks_0, part_bbox_0, part_vis_0, roi10_0),
+            ("_1", peaks_1, masks_1, part_bbox_1, part_vis_1, roi10_1)):
         # rcv coords + 16x8-grid one-hot (convert_market.py:465-492)
         rcv = np.zeros([keypoint_num, 3], np.float32)
         grid = np.zeros([16, 8, keypoint_num], np.float32)
@@ -387,13 +396,16 @@ def build_pair_example(
                 grid[int(p[0][1] / h_unit), int(p[0][0] / w_unit), k] = 1
         f[f"pose_peaks{suffix}"] = ("float", grid)
         f[f"pose_peaks{suffix}_rcv"] = ("float", rcv)
-        ind, values = _sparse_pose_r4(peaks, height, width, keypoint_num)
+        indices, values, shape = pt.get_sparse_pose(
+            peaks, height, width, keypoint_num, radius=4, mode="Solid")
+        ind, shape_flat = pt.one_dim_sparse(indices, shape)
         f[f"indices_r4{suffix}"] = ("int64", ind)
         f[f"values_r4{suffix}"] = ("float", values)
         for key, mask in masks.items():
             f[f"{key}{suffix}"] = ("int64", np.asarray(mask, np.int64))
         f[f"part_bbox{suffix}"] = ("int64", np.asarray(bbox, np.int64))
         f[f"part_vis{suffix}"] = ("int64", np.asarray(vis, np.int64))
+        if roi10 is not None:
+            f[f"roi10_mask{suffix}"] = ("int64", np.asarray(roi10, np.int64))
     f["shape"] = ("int64", [shape_flat])
     return encode_example(f)
-

@@ -1,23 +1,35 @@
-"""OpenPose peaks -> pose masks and part bboxes (numpy and scipy): the
-port's own copy of the parts of `dpig_tpu/data/pose_tools.py` that the
-one-by-one demo (`apps/demo.py`) runs, unchanged:
+"""OpenPose peaks -> sparse poses, pose masks, part bboxes and region
+masks (numpy and scipy): the port's own copy of
+`dpig_tpu/data/pose_tools.py`, which the tfrecord converters
+(`data/convert/`), the record builder (`data/example.py`) and the
+one-by-one demo (`apps/demo.py`) run:
 
-  * get_valid_peaks — best-scored OpenPose subset selection
-    (reference utils.py:459-490);
+  * get_sparse_keypoint / get_sparse_pose / one_dim_sparse / sparse2dense
+    (reference utils.py:406-457);
   * get_pose_mask — limb-segment interpolated discs over the 23-limb
     LIMB_SEQ + dilation(square(5)) + erosion(square(5))
     (datasets/convert_market.py:229-281);
   * get_part_bbox37 — 37 body-part region proposals
     (datasets/convert_market.py:640-728);
-  * get_sparse_keypoint / sparse2dense, which get_pose_mask calls
-    (utils.py:406-457).
+  * get_valid_peaks — best-scored OpenPose subset selection
+    (utils.py:459-490);
+  * peaks_from_rcv / maskrcnn_to_openpose_rcv — [18, 3] rcv arrays and
+    MaskRCNN's 17 COCO joints as OpenPose peaks (mat2dic_maskrcnn.py);
+  * get_roi_mask10 — DeepFashion's 10 body-region masks
+    (convert_DF.py:658-764), its back-fill drawn from a caller's
+    `np.random.RandomState` (the JAX package draws it from numpy's global
+    generator);
+  * load_py2_pickle — the reference's py2 pickles (OpenPose peaks and
+    subsets, pair lists), read as latin1.
 
 Morphology uses scipy.ndimage grey_dilation/erosion (mode='reflect',
 matching skimage.morphology's defaults).
 """
 from __future__ import annotations
 
+import functools
 import math
+import pickle
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -68,6 +80,59 @@ def get_sparse_keypoint(r, c, k, height, width, radius=4, var=4,
     return indices, values
 
 
+@functools.lru_cache(maxsize=None)
+def _disc_offsets(radius: int) -> np.ndarray:
+    """[n, 2] (i, j) offsets of `get_sparse_keypoint`'s disc, in its loop
+    order (i, then j)."""
+    return np.array([(i, j) for i in range(-radius, radius + 1)
+                     for j in range(-radius, radius + 1)
+                     if math.sqrt(float(i ** 2 + j ** 2)) <= radius],
+                    np.int64).reshape(-1, 2)
+
+
+def _solid_discs(centers, height, width, radius
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """[m, 2] (row, col) of the 'Solid' discs around each (r, c) center,
+    in `get_sparse_keypoint`'s order center by center, and the index of
+    each one's center: its indices without the per-pixel Python loop (the
+    converters make ~50 discs a mask)."""
+    offsets = _disc_offsets(radius)
+    rc = (np.array([(int(r), int(c)) for r, c in centers],
+                   np.int64).reshape(-1, 1, 2) + offsets).reshape(-1, 2)
+    center = np.repeat(np.arange(len(centers)), len(offsets))
+    keep = ((rc[:, 0] >= 0) & (rc[:, 0] < height) & (rc[:, 1] >= 0)
+            & (rc[:, 1] < width))
+    return rc[keep], center[keep]
+
+
+def get_sparse_pose(peaks, height, width, channel, radius=4, var=4,
+                    mode="Solid"):
+    """All-keypoint sparse pose (utils.py:427-439)."""
+    indices, values = [], []
+    if mode == "Solid":
+        ks = [k for k, p in enumerate(peaks) if len(p) != 0]
+        rc, center = _solid_discs([(peaks[k][0][1], peaks[k][0][0])
+                                   for k in ks], height, width, radius)
+        rck = np.concatenate([rc, np.asarray(ks, np.int64).reshape(-1)[
+            center][:, None]], 1)
+        return rck.tolist(), [1] * len(rck), [height, width, channel]
+    for k in range(len(peaks)):
+        p = peaks[k]
+        if len(p) != 0:
+            ind, val = get_sparse_keypoint(p[0][1], p[0][0], k, height,
+                                           width, radius, var, mode)
+            indices.extend(ind)
+            values.extend(val)
+    return indices, values, [height, width, channel]
+
+
+def one_dim_sparse(indices, shape):
+    """Row-major flattening of sparse indices (utils.py:441-448)."""
+    out = [ind[0] * shape[2] * shape[1] + ind[1] * shape[2] + ind[2]
+           for ind in indices]
+    return out, int(np.prod(shape))
+
+
 def sparse2dense(indices, values, shape) -> np.ndarray:
     dense = np.zeros(shape)
     for ind, v in zip(indices, values):
@@ -75,9 +140,38 @@ def sparse2dense(indices, values, shape) -> np.ndarray:
     return dense
 
 
+def _limb_centers(peaks, radius) -> list:
+    """The disc centers of `get_pose_mask`, in its order: per limb with
+    both ends, the two ends, then the points between them."""
+    centers = []
+    for limb in LIMB_SEQ:
+        p0 = peaks[limb[0] - 1]
+        p1 = peaks[limb[1] - 1]
+        if len(p0) != 0 and len(p1) != 0:
+            r0, c0 = p0[0][1], p0[0][0]
+            r1, c1 = p1[0][1], p1[0][0]
+            centers += [(r0, c0), (r1, c1)]
+            distance = np.sqrt((r0 - r1) ** 2 + (c0 - c1) ** 2)
+            sample_n = int(distance / radius)
+            if sample_n > 1:
+                centers += [(r0 + (r1 - r0) * i / sample_n,
+                             c0 + (c1 - c0) * i / sample_n)
+                            for i in range(1, sample_n)]
+    return centers
+
+
 def get_pose_mask(peaks, height, width, radius=4, var=4,
                   mode="Solid") -> np.ndarray:
-    """Limb-rasterized body mask + 5x5 closing (convert_market.py:229-281)."""
+    """Limb-rasterized body mask + 5x5 closing (convert_market.py:229-281).
+    The 'Solid' discs are set in one numpy assignment (every value is 1,
+    so the order of the writes does not matter)."""
+    if mode == "Solid":
+        dense = np.zeros([height, width])
+        rc, _ = _solid_discs(_limb_centers(peaks, radius), height, width,
+                             radius)
+        dense[rc[:, 0], rc[:, 1]] = 1
+        dense = grey_dilation(dense, size=(5, 5))
+        return grey_erosion(dense, size=(5, 5))
     indices, values = [], []
     for limb in LIMB_SEQ:
         p0 = peaks[limb[0] - 1]
@@ -125,8 +219,8 @@ def get_part_bbox37(peaks, height=128, width=64, radius=6
             part_bbox_list.append([0, 0, 1, 1])
             continue
         visibility_list.append(1)
-        y1, x1 = int(np.min(ys)), int(np.min(xs))
-        y2, x2 = int(np.max(ys)), int(np.max(xs))
+        y1, x1 = int(min(ys)), int(min(xs))
+        y2, x2 = int(max(ys)), int(max(xs))
         rr = r if len(xs) > 1 else r_single
         part_bbox_list.append([max(0, y1 - rr), max(0, x1 - rr),
                                min(height - 1, y2 + rr),
@@ -158,3 +252,108 @@ def get_valid_peaks(all_peaks, subsets) -> Optional[list]:
         return peaks
     except Exception:  # noqa: BLE001  (the reference's contract: skip it)
         return None
+
+
+def peaks_from_rcv(rcv: np.ndarray) -> list:
+    """[K,3] (row,col,vis) -> the peaks structure ([(x, y, score, id)] per
+    keypoint) that the mask and bbox tools take."""
+    peaks = []
+    for k in range(rcv.shape[0]):
+        r, c, v = rcv[k]
+        peaks.append([(float(c), float(r), 1.0, k)] if v > 0 else [])
+    return peaks
+
+
+# MaskRCNN(COCO-17) -> OpenPose(18) keypoint index map
+# (datasets/mat2dic_maskrcnn.py:28). OpenPose's neck (idx 1) is synthesized
+# as the shoulder midpoint.
+OPENPOSE_FROM_MASKRCNN = {0: 0, 1: None, 2: 6, 3: 8, 4: 10, 5: 5, 6: 7,
+                          7: 9, 8: 12, 9: 14, 10: 16, 11: 11, 12: 13,
+                          13: 15, 14: 1, 15: 2, 16: 3, 17: 4}
+
+
+def maskrcnn_to_openpose_rcv(crs: np.ndarray, keypoint_num: int = 18
+                             ) -> np.ndarray:
+    """[2, 17] MaskRCNN (col,row) joints -> [18, 3] OpenPose-order rcv,
+    with the neck made up from the shoulder midpoint
+    (datasets/mat2dic_maskrcnn.py:29-53)."""
+    rcv = np.zeros([keypoint_num, 3], np.float32)
+    for k in range(keypoint_num):
+        k_idx = OPENPOSE_FROM_MASKRCNN[k]
+        if k_idx is not None:
+            c, r = crs[:, k_idx]
+            if not (c == 0 and r == 0):
+                rcv[k] = [r, c, 1]
+    r0, c0, v0 = rcv[2]
+    r1, c1, v1 = rcv[5]
+    if v0 and v1:
+        rcv[1] = [(r0 + r1) / 2, (c0 + c1) / 2, 1]
+    return rcv
+
+
+# DF 10-ROI body-region proposal masks (convert_DF.py:658-764). The five
+# small + five big region index sets select entries of the 37-part bbox
+# list; WholeBody (knee+ankle visible) switches the sets and the head/limb
+# margins. Missing regions are back-filled by the reference's
+# `np.random.choice(len)-1` index quirk (kept for bit parity).
+ROI10_SMALL_WHOLE = [[0], [3], [4], [5], [6]]
+ROI10_BIG_WHOLE = [[1], [2], [35], [36], [0, 1]]
+ROI10_SMALL_PART = [[0], [3], [4], [3], [4]]
+ROI10_BIG_PART = [[1], [35], [36], [35], [36]]
+
+
+def get_roi_mask10(part_bbox_list, visibility_list, img_h: int,
+                   img_w: int, rng: np.random.RandomState) -> np.ndarray:
+    """[H, W, 10] 0/1 masks (1 = outside the region), convert_DF.py:658-764;
+    stacked in small+big order like roi10_mask_* (convert_DF.py:417).
+    A set of five with fewer visible regions is back-filled with copies
+    drawn by `rng` (the JAX package's `np.random` when it is not given).
+    Raises ValueError when a set has no visible region at all (the JAX
+    package fails there inside `choice(0)`)."""
+    whole = bool(visibility_list[13] and visibility_list[15])
+    sets = ((ROI10_SMALL_WHOLE, ROI10_BIG_WHOLE) if whole else
+            (ROI10_SMALL_PART, ROI10_BIG_PART))
+
+    def region_masks(idx_sets):
+        masks = []
+        for bbox_idxs in idx_sets:
+            y1, x1, y2, x2 = img_h - 1, img_w - 1, 0, 0
+            valid = False
+            for part_idx in bbox_idxs:
+                if not visibility_list[part_idx]:
+                    continue
+                valid = True
+                y1_t, x1_t, y2_t, x2_t = part_bbox_list[part_idx]
+                if part_idx == 0:  # enlarge the head roi
+                    y1_t = max(0, y1_t - (10 if whole else 20))
+                elif part_idx in (3, 4, 5, 6, 2, 35, 36):  # wrist/ankle
+                    y2_t = min(img_h - 1, y2_t + 20)
+                if not whole:
+                    y1_t = max(0, y1_t - 5)
+                    x1_t = max(0, x1_t - 5)
+                    y2_t = min(img_h - 1, y2_t + 5)
+                    x2_t = min(img_w - 1, x2_t + 5)
+                y1, x1 = min(y1, y1_t), min(x1, x1_t)
+                y2, x2 = max(y2, y2_t), max(x2, x2_t)
+            if valid:
+                m = np.ones([img_h, img_w], np.float32)
+                m[int(y1):int(y2), int(x1):int(x2)] = 0
+                masks.append(m)
+        if not masks:
+            raise ValueError(f"get_roi_mask10: none of the regions "
+                             f"{idx_sets} has a visible part, so there is "
+                             f"nothing to back-fill the five masks from")
+        while len(masks) < 5:
+            masks.append(masks[int((rng.choice(len(masks), 1) - 1)[0])])
+        return masks
+
+    small, big = (region_masks(s) for s in sets)
+    return np.stack(small + big, axis=-1)
+
+
+def load_py2_pickle(path: str):
+    """A pickle of the reference's py2 tools (OpenPose all_peaks / subsets
+    dicts, pair lists, rcv dicts), its str bytes read as latin1. The
+    pickles come from the user and are trusted, as in the JAX package."""
+    with open(path, "rb") as f:
+        return pickle.load(f, encoding="latin1")

@@ -4,7 +4,10 @@ package puts a norm; its 'wgan-gp' LayerNorm variant is built by no app).
 
   * DCGANDiscriminator (reference wgan_gp.py:407-440): 5x5/2 conv stack,
     BatchNorm from the second stage on, LeakyReLU 0.3, a linear logit over
-    the NHWC-flattened features -> [B].
+    the NHWC-flattened features -> [B]. In float32 on the card its convs
+    run PyTorch's own kernels, not cuDNN's (`Conv(cudnn=False)`): cuDNN's
+    float32 backward of Conv_1 at batch 2 went wrong in some process
+    states (ROADMAP §3).
   * FCDiscriminator (wgan_gp.py:399-405): the LeakyReLU MLP critic of the
     Stage-II samplers, in embedding space; as `--D_arch=FCDis` it scores
     every pixel of an image (a Dense acts on the last axis) -> [B*H*W].
@@ -39,7 +42,8 @@ class DCGANDiscriminator(nn.Module):
         ch_in, ch, h, w = in_ch, dim, img_h, img_w
         for stage in range(n_stages):
             self.add_module(f"Conv_{stage}", Conv(ch_in, ch, 5, stride=2,
-                                                  init=D_INIT, dtype=dtype))
+                                                  init=D_INIT, dtype=dtype,
+                                                  cudnn=False))
             if stage > 0:
                 self.add_module(f"BatchNorm_{stage - 1}",
                                 BatchNorm(ch, dtype=dtype))

@@ -25,6 +25,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from ..parallel import dist
 
@@ -46,8 +47,41 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+class _NativeConv2d(torch.autograd.Function):
+    """`F.conv2d` whose forward and backward both run PyTorch's own CUDA
+    convolution (im2col + cuBLAS), not cuDNN: the backward picks its
+    kernels by the flags at backward time, so a flag around the forward
+    alone would not keep cuDNN out of it. Not twice differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding):
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (stride, padding, bias is not None)
+        with torch.backends.cudnn.flags(enabled=False):
+            return F.conv2d(x, weight, bias, stride, padding)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        stride, padding, has_bias = ctx.conv
+        need = ctx.needs_input_grad
+        with torch.backends.cudnn.flags(enabled=False):
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                grad, x, weight, [weight.shape[0]] if has_bias else None,
+                [stride] * 2, list(padding), [1, 1], False, [0, 0], 1,
+                [need[0], need[1], has_bias and need[2]])
+        return gx, gw, gb, None, None
+
+
+def _conv2d(x, weight, bias, stride, padding=(0, 0), cudnn=True):
+    if cudnn or not x.is_cuda:
+        return F.conv2d(x, weight, bias, stride, padding)
+    return _NativeConv2d.apply(x, weight, bias, stride, tuple(padding))
+
+
 def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int = 1,
-                padding: str = "SAME") -> torch.Tensor:
+                padding: str = "SAME", cudnn: bool = True) -> torch.Tensor:
     """NCHW conv with XLA SAME padding (or none, `padding="VALID"`);
     weight OIHW.
 
@@ -57,27 +91,30 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int = 1,
     returns wrong sums at some shapes (the Market DCGAN D's last stage at
     32x16, 256 -> 512 channels, 5x5 stride 2 on a padded 7x5 input, is off
     by the output's own magnitude). CUDA tensors go to cuDNN's bfloat16
-    conv."""
+    conv, and to cuDNN's float32 conv unless `cudnn=False`, which runs
+    PyTorch's own kernels forward and backward (`_NativeConv2d`)."""
     if x.dtype == torch.bfloat16 and not x.is_cuda:
         return conv2d_same(x.to(torch.float32), weight.to(torch.float32),
                            bias, stride, padding).to(x.dtype)
     if padding == "VALID":
-        return F.conv2d(x, weight, bias, stride)
+        return _conv2d(x, weight, bias, stride, cudnn=cudnn)
     ph = same_pads(x.shape[2], weight.shape[2], stride)
     pw = same_pads(x.shape[3], weight.shape[3], stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
-        return F.conv2d(x, weight, bias, stride, (ph[0], pw[0]))
+        return _conv2d(x, weight, bias, stride, (ph[0], pw[0]), cudnn)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    return F.conv2d(x, weight, bias, stride)
+    return _conv2d(x, weight, bias, stride, cudnn=cudnn)
 
 
 class Conv(nn.Module):
     """flax `nn.Conv` twin: square kernel, SAME (or VALID) padding, bias,
-    computed in `dtype`."""
+    computed in `dtype`. `cudnn=False`: in float32 on the card, PyTorch's
+    own conv kernels instead of cuDNN's, forward and backward (the DCGAN
+    D's, `models/discriminators.py`)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  init: str = XAVIER, dtype: torch.dtype = torch.float32,
-                 padding: str = "SAME"):
+                 padding: str = "SAME", cudnn: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(out_ch))
@@ -85,12 +122,13 @@ class Conv(nn.Module):
         self.init = init
         self.dtype = dtype
         self.padding = padding
+        self.cudnn = cudnn
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         if dt == torch.float32:
             return conv2d_same(x.to(dt), self.weight, self.bias, self.stride,
-                               self.padding)
+                               self.padding, self.cudnn)
         y = conv2d_same(x.to(dt), self.weight.to(dt), None, self.stride,
                         self.padding)
         return y + self.bias.to(dt)[:, None, None]

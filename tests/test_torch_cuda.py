@@ -7,7 +7,9 @@ per call; no route from a CUDA tensor to the plain version; bad inputs
 refused before launch. And the model-12 tester on the card runs float32
 with PyTorch's TF32 flags on. Training: one small-config train step on the
 card against the CPU (both D-step variants), the optimizers on identical
-gradients, and BatchNorm's running-statistic updates. Stage II: one
+gradients, and BatchNorm's running-statistic updates; the DCGAN D's
+convs on PyTorch's own kernels, not cuDNN's, and [train parity]'s step
+ten times on each side against float64. Stage II: one
 model-3 and one model-4 step on the card against the CPU, the pose kernel
 on a model-4 preview, and the step noise in one copy. The s8 conv
 bit-equal to its plain version over kernel sizes, strides, odd sizes,
@@ -32,6 +34,8 @@ needed there, hence no conftest):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1105,3 +1109,97 @@ def test_int8_gate_on_the_card_matches_the_cpu(card, tmp_path):
     assert gap > 0.0, want
     for k, v in want.items():
         assert abs(got[k] - v) <= gap / 2, (k, got[k], v, gap)
+
+
+# ------------------------------------- the DCGAN D's convs off cuDNN
+# Last in the file: with these two before it, test_step_noise_is_one_copy's
+# profiling session came back empty in two of three runs on the card.
+def test_dcgan_d_convs_run_without_cudnn_forward_and_backward(
+        card, monkeypatch):
+    """The DCGAN D's float32 convs on the card run PyTorch's own kernels
+    (im2col + cuBLAS), forward and backward, not cuDNN's: the same
+    numbers, bit for bit, as the whole conv run with cuDNN off, and every
+    conv of a D forward and backward goes through `_NativeConv2d` (its
+    forward and backward each inside `torch.backends.cudnn.flags(enabled=
+    False)`, cuDNN read off there). No profiler here: a
+    profiling session in this process left a later test's session
+    empty."""
+    from dpig_tpu_torch.models import layers
+    from dpig_tpu_torch.models.discriminators import DCGANDiscriminator
+    from dpig_tpu_torch.models.layers import conv2d_same, init_weights
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 64, 64, 32, generator=g).to(card)
+    w = (torch.randn(128, 64, 5, 5, generator=g) * 0.02).to(card)
+    b = torch.randn(128, generator=g).to(card)
+    outs = []
+    for route in ("native", "flags"):
+        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+        if route == "native":
+            y = conv2d_same(xs, ws, bs, 2, cudnn=False)
+            grads = torch.autograd.grad((y * y).sum(), (xs, ws, bs))
+        else:
+            with torch.backends.cudnn.flags(enabled=False):
+                y = conv2d_same(xs, ws, bs, 2)
+                grads = torch.autograd.grad((y * y).sum(), (xs, ws, bs))
+        outs.append((y, *grads))
+    for a, c in zip(*outs):
+        assert torch.equal(a, c)
+    assert torch.backends.cudnn.enabled
+    calls = []
+    fn = layers._NativeConv2d
+    fwd, bwd = fn.forward, fn.backward
+
+    def counted(tag, f):
+        def run(ctx, *args):
+            calls.append((tag, torch.backends.cudnn.enabled))
+            return f(ctx, *args)
+        return staticmethod(run)
+
+    real_flags = torch.backends.cudnn.flags
+
+    @contextlib.contextmanager
+    def recorded_flags(*args, **kw):
+        with real_flags(*args, **kw):
+            calls.append(("cudnn off", torch.backends.cudnn.enabled))
+            yield
+    monkeypatch.setattr(fn, "forward", counted("forward", fwd))
+    monkeypatch.setattr(fn, "backward", counted("backward", bwd))
+    monkeypatch.setattr(torch.backends.cudnn, "flags", recorded_flags)
+    d = DCGANDiscriminator(128, 64)
+    init_weights(d, torch.Generator().manual_seed(4))
+    d = d.to(card)
+    img = torch.randn(2, 128, 64, 3, generator=g).to(card)
+    torch.autograd.grad(d(img, update_stats=True).sum(), list(d.parameters()))
+    assert [t for t, _ in calls].count("forward") == d.n_stages
+    assert [t for t, _ in calls].count("backward") == d.n_stages
+    assert calls.count(("cudnn off", False)) == 2 * d.n_stages
+    assert torch.backends.cudnn.enabled
+
+
+def test_train_parity_steps_hold_the_d_gradient_to_float64(card, tmp_path):
+    """[train parity]'s steps (chip_smoke.py phase 7: batch 2 at full
+    Market width), ten times on the CPU and ten on the card, fresh state
+    each, the G after the update set to the first CPU step's: every D
+    gradient within 1e-4 (||diff|| / ||grad||) of the CPU's float64 step
+    from that G. Before the DCGAN D's convs left cuDNN, the card's read
+    9.736e-3 in some of these (cuDNN's float32 backward of `Conv_1`
+    wrong, so `Conv_0`'s weight and bias gradients 1.4e-2 off), the CPU's
+    2.9e-6 always."""
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.train.parity import to_float64
+    cfgs = {p: Config(platform=p, batch_size=2, model_dir=str(tmp_path))
+            for p in ("", "cpu")}
+    batch = next(SyntheticLoader(2, 128, 64, seed=99))
+    cpu = torch.device("cpu")
+    first = recorded_train_step(Stage1App(cfgs["cpu"], cpu), batch)
+    wide = recorded_train_step(to_float64(Stage1App(cfgs["cpu"], cpu)),
+                               batch, g_updated=first.g_updated)
+    errs = {"cpu": [], "card": []}
+    for side, dev in (("cpu", cpu), ("card", card)):
+        for _ in range(10):
+            rec = recorded_train_step(Stage1App(cfgs["cpu" if side == "cpu"
+                                                     else ""], dev),
+                                      batch, g_updated=first.g_updated)
+            errs[side].append(step_errors(wide, rec)["Discriminator"])
+    print(f"D gradient against float64: {errs}")
+    assert max(errs["cpu"] + errs["card"]) <= 1e-4, errs

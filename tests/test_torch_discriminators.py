@@ -8,8 +8,9 @@ two chained updating passes (the D step's real then fake pass) and the
 running statistics they leave, the eval-mode output, and the gradients of
 the D objective (params) and of the G objective (the image), in float32;
 the bfloat16 outputs within JAX's own bfloat16-vs-float32 gap; the
-selector's names and errors. The Stage-I step with each arch is in
-`tests/test_torch_d_arch_train.py`.
+selector's names and errors; `layers._NativeConv2d`, the DCGAN D's conv
+on the card, against F.conv2d and numerical gradients. The Stage-I step
+with each arch is in `tests/test_torch_d_arch_train.py`.
 
 The Patch D needs 2^(n_layers+1) = 16 px per side, and at 16 to 23 px its
 logit map is empty (JAX returns a [B, 2, 0] map at 32x16, so NaN losses):
@@ -240,3 +241,32 @@ def test_selector_names_and_errors():
     assert out.shape == (2, 2, 0)
     with pytest.raises(ValueError, match="empty logit map"):
         pd(_t(x))
+
+
+@pytest.mark.parametrize("stride,padding,bias", [(2, (0, 0), True),
+                                                 (2, (1, 2), True),
+                                                 (1, (2, 2), False)])
+def test_native_conv_function_is_the_conv_and_its_gradient(stride, padding,
+                                                           bias):
+    """`layers._NativeConv2d`, the DCGAN D's conv on the card (PyTorch's own
+    kernels forward and backward, its backward calling
+    `aten.convolution_backward` itself): here on the CPU in float64, the
+    value of F.conv2d and the gradients autograd checks numerically, for
+    each input that needs one; under no_grad it records nothing."""
+    from dpig_tpu_torch.models.layers import _NativeConv2d
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 4, 11, 8, generator=g, dtype=torch.float64)
+    w = torch.randn(6, 4, 5, 5, generator=g, dtype=torch.float64)
+    b = torch.randn(6, generator=g, dtype=torch.float64) if bias else None
+    args = [t.requires_grad_(True) for t in (x, w, b) if t is not None]
+
+    def conv(x, w, b=None):
+        return _NativeConv2d.apply(x, w, b, stride, padding)
+
+    torch.testing.assert_close(conv(*args), torch.nn.functional.conv2d(
+        *args, stride=stride, padding=padding), rtol=0, atol=1e-12)
+    assert torch.autograd.gradcheck(conv, tuple(args))
+    assert torch.autograd.gradcheck(
+        lambda w: conv(x.detach(), w), (w,))  # the D's first conv
+    with torch.no_grad():
+        assert not conv(*args).requires_grad
