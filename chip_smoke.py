@@ -172,9 +172,9 @@ Phases, each printing one line; any failure exits non-zero:
               conv on every conv shape of one int8 model-1001 batch, as in
               phase 14 (its plain float64 conv on the whole batch); card vs
               CPU at batch 2: one model-1001 batch (phase 5's tolerance and
-              TF32 control) and one model-101 step (phase 7's), the step
-              also read against a float64 step on the card and on the
-              CPU, and with cuDNN's deterministic algorithms. The pose
+              TF32 control) and one model-101 step (phase 7's; where it
+              fails, also read against a float64 step on the card and on
+              the CPU, and with cuDNN's deterministic algorithms). The pose
               kernel at 256x256 for B = 6 and 16 is in phase 3.
 
 17. demo     `--test_one_by_one` through the CLI at full Market width on
@@ -190,8 +190,7 @@ Phases, each printing one line; any failure exits non-zero:
               step, finite metrics, phase 6's pose launches); one step of
               each card vs CPU within D_ARCH_PARITY_TOL (phase 7's limits,
               the Patch D's ill-conditioned gradient excepted), a TF32
-              step past the guard outside them; for Patch, the step
-              against float64 on both sides and without cuDNN.
+              step past the guard outside them.
 19. remat    `--remat` through the CLI for models 1 and 101 (2 steps);
               one step with and without remat from the same weights for
               model 1 at batch 16 and 256 and model 101 at 6: ms per step,
@@ -272,6 +271,20 @@ Phases, each printing one line; any failure exits non-zero:
               of each mode on the card and on the CPU from one seed, each
               W tail within STAGE2_PARITY_TOL absolute and each moment gap
               within it relative.
+
+27. tf1 import  a TF1 checkpoint (TF V2 tensor bundle) of every scope at
+              full Market width, written from a seeded template of the
+              testers' nets in the reference's names and layouts
+              (`train/tf1_bundle.write_bundle`; no TensorFlow on the
+              card's machine): `python -m dpig_tpu_torch.train.tf1_import`
+              on it, every imported tensor bit-equal to its source; models
+              12 and 11 (`--sample_app --pose_source=sampled`) through the
+              CLI from the imported checkpoint with the four
+              --pretrained_* flags, TF1_BATCHES batches, their trees
+              byte-equal to the same testers run on the source weights;
+              pose launches (2 / 3 per batch); the bundle's bytes and its
+              write, read and import seconds with the card's name and
+              power limit.
 
 The line before the last is {"kernels": [...]}: the pose kernel with its
 launches on each path, and the s8 conv's four routes (wgmma, narrow_ci,
@@ -1125,7 +1138,7 @@ def _float32_gaps(cfgs, batch, fg_bg, ref):
 
 def phase_train_parity(model_dir, size=None, fg_bg=True,
                        tag="[train parity]", tol=None, df256=False,
-                       d_arch=False, gaps=False):
+                       d_arch=False):
     """One train step, batch 2 at full width, default variant, from the
     same weights on the card and on the CPU, the card's D step from the
     CPU's updated G: float32, with the TF32 flags on, and two controls with
@@ -1134,18 +1147,17 @@ def phase_train_parity(model_dir, size=None, fg_bg=True,
     the G objective (see TRAIN_PARITY_TOL). `size` (Config fields) and
     `fg_bg` pick the model: Market model 1 by default.
 
-    `tol` replaces TRAIN_PARITY_TOL. `df256`: the CPU's float32 step is
-    also read against the same step in float64 (the yardstick of what
-    float32 can give), and so is the card's, the card's float32 step
-    again with cuDNN's deterministic algorithms, and the D-backward TF32
-    control is shown, not required (see DF_TRAIN_PARITY_TOL). Without
+    `tol` replaces TRAIN_PARITY_TOL. `df256`: the D-backward TF32 control
+    is shown, not required (see DF_TRAIN_PARITY_TOL). Without
     `d_arch` (a D other than DCGAN) the L1-term runs and the D-backward
     control are left out (the L1 term reads the generator's backward,
     which the D does not change), and the control past the guard must
     break the check on one of its limits, not on each G net's (such a D
-    moves the generator's TF32 error less). `gaps` prints `_float32_gaps`
-    as `df256` does. A limit on a key the step does not have (`d_stats`
-    of a D without BatchNorm) is not read."""
+    moves the generator's TF32 error less). A failing check prints
+    `_float32_gaps` (each side's float32 step against a float64 step, the
+    card's also with cuDNN's deterministic algorithms and without cuDNN).
+    A limit on a key the step does not have (`d_stats` of a D without
+    BatchNorm) is not read."""
     from dpig_tpu_torch.apps.stage1_app import Stage1App
     from dpig_tpu_torch.config import Config
     from dpig_tpu_torch.data.synthetic import SyntheticLoader
@@ -1161,7 +1173,7 @@ def phase_train_parity(model_dir, size=None, fg_bg=True,
                 True, Stage1App.train_step.__wrapped__)}
     terms = (("G objective", contextlib.nullcontext),
              ("L1 term", _l1_term_only))[:1 if d_arch else 2]
-    errs, readings, g_ref = {}, {}, None
+    errs, g_ref = {}, None
     for term, context in terms:
         with context():
             ref = recorded_train_step(
@@ -1169,8 +1181,6 @@ def phase_train_parity(model_dir, size=None, fg_bg=True,
                 batch)
             if term == "G objective":
                 g_ref = ref
-                if df256 or gaps:
-                    readings.update(_float32_gaps(cfgs, batch, fg_bg, ref))
             for label, (tf32, step_fn) in runs.items():
                 if term == "L1 term" and "past the guard" in label:
                     continue
@@ -1189,9 +1199,6 @@ def phase_train_parity(model_dir, size=None, fg_bg=True,
     tols = {"G objective": tol or TRAIN_PARITY_TOL,
             "L1 term": L1_GRAD_TOL}
     tols = {term: tols[term] for term, _ in terms}
-    for label, gap in readings.items():
-        print(f"{tag} G objective, {label}: " + ", ".join(
-            f"{k} {v:.3e}" for k, v in gap.items()), flush=True)
     for (term, label), e in errs.items():
         print(f"{tag} {term}, {label}: " + ", ".join(
             f"{k} {v:.3e}" for k, v in e.items()
@@ -1219,11 +1226,9 @@ def phase_train_parity(model_dir, size=None, fg_bg=True,
               f"CPU's float64 step: " + ", ".join(
                   f"{k} {v:.3e}" for k, v in ref_err.items())
               + f"; beyond the tolerances: {off or 'none'}", flush=True)
-        if not (df256 or gaps):
-            for what, gap in _float32_gaps(cfgs, batch, fg_bg,
-                                           g_ref).items():
-                print(f"{tag} G objective, {what}: " + ", ".join(
-                    f"{k} {v:.3e}" for k, v in gap.items()), flush=True)
+        for what, gap in _float32_gaps(cfgs, batch, fg_bg, g_ref).items():
+            print(f"{tag} G objective, {what}: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in gap.items()), flush=True)
         raise AssertionError(f"card and CPU train steps disagree beyond "
                              f"the tolerances {failed}")
     guarded_forwards = "control: forwards guarded only, TF32"
@@ -2864,8 +2869,7 @@ def phase_d_arch(tmp):
     for arch in D_ARCHS:
         phase_train_parity(os.path.join(tmp, f"d_parity_{arch}"),
                            {"D_arch": arch}, tag=f"[d_arch parity] {arch},",
-                           tol=D_ARCH_PARITY_TOL[arch], d_arch=True,
-                           gaps=arch == "Patch")
+                           tol=D_ARCH_PARITY_TOL[arch], d_arch=True)
     return by_path
 
 
@@ -2964,8 +2968,8 @@ def phase_remat(tmp):
 
 # ------------------------------------------------------------------ DDP
 # [ddp]: data parallelism across processes (dpig_tpu_torch/parallel/).
-DDP_STEPS, DDP_RESUME_TO, DDP_LOG_STEP = 6, 8, 2
-DDP_TIMED_STEPS = 2          # steps timed after the recorded one
+DDP_STEPS, DDP_RESUME_TO, DDP_LOG_STEP = 4, 6, 2
+DDP_TIMED_STEPS = 1          # steps timed after the recorded one
 DDP_RANKS_TIMEOUT = 480.0    # s, the two-rank group as a whole
 # Two ranks of 8 rows against world 1 on 16, the whole step in float64
 # (the embedding-stem sum, the nets' outputs and the ROI crop too): the
@@ -3411,7 +3415,7 @@ SCORE_TOL = 1e-9
 # The gate at full width: Market train steps (bs64, bfloat16, fast D
 # step) and its pool, the 256 ones (bs16); check/sweep/gate score
 # QUALITY_BATCHES - 1 held-out batches after the calibration one.
-QUALITY_STEPS, QUALITY_POOL = 20, 8
+QUALITY_STEPS, QUALITY_POOL = 10, 8
 QUALITY_256_STEPS, QUALITY_256_POOL = 4, 4
 QUALITY_BATCHES = 4
 GATE_KEYS = ("ssim_int8_float", "ssim_to_target_float",
@@ -3915,6 +3919,115 @@ def phase_critic_ab():
     return {"critic A/B (both modes)": launches}
 
 
+# ---------------------------------------------------------- TF1 import
+TF1_BATCHES = 2
+TF1_SERVE = {  # CLI flags -> the sub-trees the tester takes from them
+    "model 12": (["--model=12"], ("Encoder", "ID_AE")),
+    "model 11": (["--model=11", "--sample_app=true",
+                  "--pose_source=sampled"],
+                 ("Encoder", "ID_AE", "PoseAE", "PoseGaussian",
+                  "Gaussian_FC_Fg", "Gaussian_FC_Bg"))}
+
+
+def _tree_files(root):
+    """{relative path: bytes} of every file under `root`."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            path = os.path.join(d, n)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def phase_tf1_import(tmp):
+    """A TF1 checkpoint of every scope at full Market width (a seeded
+    template of the testers' nets named as the reference names them:
+    slim scopes in creation order, the D's tflib names with Output.W in
+    NCHW rows and its BatchNorm moving statistics, plus optimizer slots
+    the reader drops), written by `tf1_bundle.write_bundle`; `python -m
+    dpig_tpu_torch.train.tf1_import` on it (no TensorFlow here): every
+    imported tensor bit-equal to its source; models 12 and 11 through the
+    CLI from the imported checkpoint with the --pretrained_* flags,
+    TF1_BATCHES batches each, their PNG trees byte-equal to the same
+    testers' run on the source weights given directly; pose launches;
+    the bundle's bytes, write / read / import seconds and read rate ->
+    pose launches by path."""
+    from dpig_tpu_torch.apps import testers
+    from dpig_tpu_torch.config import Config, get_config
+    from dpig_tpu_torch.main import make_loader
+    from dpig_tpu_torch.train import checkpoint as ckpt
+    from dpig_tpu_torch.train import tf1_bundle, tf1_import
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    source = tf1_import.template_state(Config(
+        model_dir=os.path.join(tmp, "tf1_src"), random_seed=11))
+    var = tf1_import.reference_variables(source, 128, 64)
+    var["ID_AE/G/Conv/weights/Adam"] = np.zeros(8, np.float32)
+    var["Discriminator.1.Filters/RMSProp_1"] = np.zeros(8, np.float32)
+    var["beta1_power"] = np.float32(0.9)
+    t0 = time.perf_counter()
+    prefix = tf1_bundle.write_bundle(
+        os.path.join(tmp, "tf1", "model.ckpt-1000"), var)
+    t_write = time.perf_counter() - t0
+    out = os.path.join(tmp, "tf1_imported")
+    sizes = tf1_import.main([f"--ckpt_path={prefix}", f"--model_dir={out}"])
+    tree = ckpt.load_tree(out)
+    unequal = [f"{sub}/{n}" for sub, tensors in source.items()
+               for n, t in tensors.items()
+               if not torch.equal((tree["g_params"].get(sub) or {
+                   **tree["d_params"][sub], **tree["d_stats"][sub]})[n], t)]
+    n_tensors = sum(len(t) for t in source.values())
+    rate = sizes["bundle_bytes"] / sizes["read_s"] / 1e6
+    print(f"[tf1 import] {card}: a {sizes['bundle_bytes']} byte bundle "
+          f"({len(var)} variables, {n_tensors} port tensors in "
+          f"{len(source)} sub-trees) written in {t_write:.3f} s, read in "
+          f"{sizes['read_s']:.3f} s ({rate:.1f} MB/s, CRCs checked, warm "
+          f"page cache), imported in {sizes['import_s']:.3f} s; tensors "
+          f"unequal to their source: {unequal or 'none'}", flush=True)
+    if unequal or tree["step"] != 0:
+        raise AssertionError(f"[tf1 import] {unequal[:5]}")
+
+    by_path, differ = {}, {}
+    flags = ["--is_train=false", "--synthetic_data=true",
+             f"--test_batch_num={TF1_BATCHES}"]
+    pretrained = [f"--pretrained_{k}={out}" for k in (
+        "path", "poseAE_path", "appSample_path", "poseSample_path")]
+    for name, (argv, subs) in TF1_SERVE.items():
+        cli_dir = os.path.join(tmp, f"tf1_{name[-2:]}_cli")
+        launches, wall = _run_cli([*argv, *flags, *pretrained,
+                                   f"--model_dir={cli_dir}"])
+        direct_dir = os.path.join(tmp, f"tf1_{name[-2:]}_source")
+        cfg = get_config([*argv, *flags, f"--model_dir={direct_dir}"])
+        cls = (testers.ConditionalTransferTester if cfg.model == 12
+               else testers.FullSamplingTester)
+        tester = cls(cfg, params={k: source[k] for k in subs})
+        with contextlib.closing(make_loader(cfg)) as loader:
+            kw = {} if cfg.model == 12 else {"pose_source": "sampled"}
+            tester.run(loader, **kw)
+        del tester
+        got, want = _tree_files(cli_dir), _tree_files(direct_dir)
+        got.pop("params.json", None)
+        differ[name] = sorted(k for k in set(got) | set(want)
+                              if got.get(k) != want.get(k))
+        per_batch = 2 if cfg.model == 12 else 3
+        print(f"[tf1 import] {name} through the CLI from the imported "
+              f"checkpoint, {TF1_BATCHES} batches of {cfg.batch_size}: "
+              f"{wall:.1f} s wall; "
+              f"{len(got)} files, differing from the source weights' run: "
+              f"{differ[name] or 'none'}; pose kernel launches {launches} "
+              f"(expected {per_batch * TF1_BATCHES})", flush=True)
+        if differ[name] or not got or launches != per_batch * TF1_BATCHES:
+            raise AssertionError(f"[tf1 import] {name}: {differ[name][:5]}, "
+                                 f"{launches} launches")
+        by_path[f"[tf1 import] {name} from the imported checkpoint"] = \
+            launches
+    return by_path
+
+
 def _timed(phase):
     """`phase`, printing the seconds each call of it took."""
     @functools.wraps(phase)
@@ -3967,12 +4080,13 @@ def main() -> int:
         converted = phase_convert(tmp)
         pipeline = phase_pipeline(tmp)
         critic_ab = phase_critic_ab()
+        tf1 = phase_tf1_import(tmp)
     by_path = {"model 12 transfer": model12, **sampling,
                "model 1 training": train, **stage2, **data, **bf16,
                **int8_pose, **df_train, **df_pose, **modes, **ddp_pose,
-               **q_pose, **converted, **pipeline, **critic_ab}
+               **q_pose, **converted, **pipeline, **critic_ab, **tf1}
     for path in (*df_train, *df_pose, *modes, *q_pose, *converted,
-                 *pipeline):
+                 *pipeline, *tf1):
         if not by_path[path]:
             raise AssertionError(f"the pose kernel was not launched on "
                                  f"{path}")

@@ -140,11 +140,7 @@ class _TesterBase:
         missing = sorted(s for s in self.SUBTREES if s not in params
                          and not s.startswith("Discriminator"))
         if missing:
-            # Cold start (tests / smoke runs): loudly, so a production run
-            # with forgotten --pretrained_* flags is obvious.
-            print(f"[!] {type(self).__name__}: no pretrained weights for "
-                  f"{missing} — using RANDOM init (pass the --pretrained_* "
-                  "flags for real inference)", flush=True)
+            self._warn_cold_start(missing)
         self.stage1 = Stage1App(cfg, self.device, state=params,
                                 disc=bool(missing)
                                 or "Discriminator" in params,
@@ -168,6 +164,13 @@ class _TesterBase:
                     init_weights(mapper, gen)
                 self.mappers[name] = mapper.to(self.device).eval(
                 ).requires_grad_(False)
+
+    def _warn_cold_start(self, missing) -> None:
+        """Cold start (tests / smoke runs): loudly, so a production run with
+        forgotten --pretrained_* flags is obvious."""
+        print(f"[!] {type(self).__name__}: no pretrained weights for "
+              f"{missing} — using RANDOM init (pass the --pretrained_* "
+              "flags for real inference)", flush=True)
 
     def nets(self) -> Dict[str, torch.nn.Module]:
         """This tester's nets by sub-tree name."""

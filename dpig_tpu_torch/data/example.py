@@ -277,7 +277,7 @@ def parse_example_features_plain(record: bytes,
 
 
 # ------------------------------------------------------------- encoding
-def _varint(v: int) -> bytes:
+def varint(v: int) -> bytes:
     v &= _U64
     out = bytearray()
     while v >= 0x80:
@@ -288,7 +288,7 @@ def _varint(v: int) -> bytes:
 
 
 def _varints(vals: np.ndarray) -> bytes:
-    """`_varint` of each int64, concatenated, in numpy: seven bits a byte,
+    """`varint` of each int64, concatenated, in numpy: seven bits a byte,
     the high bit set on all but a value's last byte, negatives as their
     64-bit two's complement (ten bytes)."""
     u = vals.view(np.uint64)
@@ -302,9 +302,14 @@ def _varints(vals: np.ndarray) -> bytes:
     return groups[k < n[:, None]].astype(np.uint8).tobytes()
 
 
-def _field(number: int, payload: bytes) -> bytes:
+def field(number: int, payload: bytes) -> bytes:
     """A length-delimited field."""
-    return _varint(number << 3 | 2) + _varint(len(payload)) + payload
+    return varint(number << 3 | 2) + varint(len(payload)) + payload
+
+
+def int_field(number: int, value: int) -> bytes:
+    """A varint field."""
+    return varint(number << 3) + varint(value)
 
 
 def _encode_feature(kind: str, values) -> bytes:
@@ -312,10 +317,10 @@ def _encode_feature(kind: str, values) -> bytes:
     float32, each value rounded from float64 as protobuf does) or 'int64'
     (packed varints, negatives in ten bytes)."""
     if kind == "bytes":
-        return _field(1, b"".join(_field(1, v) for v in values))
+        return field(1, b"".join(field(1, v) for v in values))
     if kind == "float":
         vals = np.asarray(values, np.float64).ravel().astype("<f4")
-        return _field(2, _field(1, vals.tobytes()) if vals.size else b"")
+        return field(2, field(1, vals.tobytes()) if vals.size else b"")
     if kind == "int64":
         vals = np.asarray(values).ravel()
         if vals.dtype.kind in "iub" and vals.size and (
@@ -323,7 +328,7 @@ def _encode_feature(kind: str, values) -> bytes:
             packed = vals.astype(np.uint8).tobytes()  # one byte each
         else:
             packed = _varints(vals.astype(np.int64))
-        return _field(3, _field(1, packed) if vals.size else b"")
+        return field(3, field(1, packed) if vals.size else b"")
     raise ValueError(f"unknown feature kind {kind!r}")
 
 
@@ -331,9 +336,9 @@ def encode_example(features: Mapping[str, Tuple[str, object]]) -> bytes:
     """{name: (kind, values)} -> a serialized tf.Example, one map entry
     per name in the given order."""
     entries = b"".join(
-        _field(1, _field(1, name.encode()) + _field(2, _encode_feature(*kv)))
+        field(1, field(1, name.encode()) + field(2, _encode_feature(*kv)))
         for name, kv in features.items())
-    return _field(1, entries)
+    return field(1, entries)
 
 
 def build_pair_example(

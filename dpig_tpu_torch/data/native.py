@@ -48,8 +48,14 @@ def get_lib() -> ctypes.CDLL:
     return _lib
 
 
-def crc32c(data: bytes) -> int:
-    """CRC32-Castagnoli of `data` (unmasked)."""
+def crc32c(data: Union[bytes, np.ndarray]) -> int:
+    """CRC32-Castagnoli of `data` (unmasked): bytes, or a contiguous
+    array's buffer, read in place."""
+    if isinstance(data, np.ndarray):
+        if not data.flags.c_contiguous:
+            raise ValueError("crc32c of a non-contiguous array")
+        return int(get_lib().tfr_crc32c(ctypes.c_char_p(data.ctypes.data),
+                                        data.nbytes))
     return int(get_lib().tfr_crc32c(data, len(data)))
 
 

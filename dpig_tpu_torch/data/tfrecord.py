@@ -51,7 +51,8 @@ def _mask(crc: int) -> int:
     return (((crc >> 15) | (crc << 17)) + _MASK_DELTA) & 0xFFFFFFFF
 
 
-def masked_crc(data: bytes) -> int:
+def masked_crc(data) -> int:
+    """The masked CRC32C of bytes, or of a contiguous array's buffer."""
     return _mask(native.crc32c(data))
 
 
@@ -70,6 +71,9 @@ class TFRecordWriter:
         self._f.write(struct.pack("<I", masked_crc(header)))
         self._f.write(record)
         self._f.write(struct.pack("<I", masked_crc(record)))
+
+    def flush(self) -> None:
+        self._f.flush()
 
     def close(self) -> None:
         self._f.close()

@@ -10,13 +10,14 @@ it too.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.crop import crop_body_rois
+from ..ops.ste import bernoulli_sample
 from .layers import Conv, ConvBlockTower, Dense, flatten_nhwc
 
 
@@ -67,50 +68,65 @@ class _RoiTower(nn.Module):
         return self.Dense_0(flatten_nhwc(self.ConvBlockTower_0(rois)))
 
 
-def _apply_vis(fea: torch.Tensor, part_vis: torch.Tensor,
-               part_num: int) -> torch.Tensor:
-    """Visibility zeroing (encoders.py:62-80; models.py:433-442).
-    fea [P*B, z] part-major; part_vis [B, P]. Returns [B, P*z]. Part
-    dropout (keep_part_prob < 1) is not ported: Stage I passes no rng, so
-    models 1 and 101 never draw it."""
+def _apply_vis(fea: torch.Tensor, part_vis: torch.Tensor, part_num: int,
+               keep_part_prob: float = 1.0,
+               part_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Visibility zeroing (encoders.py:62-80; models.py:433-442), then, if
+    keep_part_prob < 1 and the uniforms `part_noise` [P, B, 1] are given,
+    Bernoulli part dropout with a straight-through gradient
+    (models.py:443-451): each part of each sample kept with probability
+    keep_part_prob. The JAX package draws the uniforms from its rng
+    (`rng=`), the port takes them as a tensor (`ops.ste.uniform_noise`);
+    without them, as without JAX's rng, nothing is dropped (Stage I
+    passes none, so models 1 and 101 never drop a part).
+    fea [P*B, z] part-major; part_vis [B, P]. Returns [B, P*z]."""
     pb, z = fea.shape
     b = pb // part_num
     fea = fea.reshape(part_num, b, z)
     fea = fea * part_vis.to(fea.dtype).t()[:, :, None]
+    if keep_part_prob < 1.0 and part_noise is not None:
+        probs = torch.full((part_num, b, 1), keep_part_prob,
+                           dtype=fea.dtype, device=fea.device)
+        fea = fea * bernoulli_sample(probs, part_noise)
     return fea.transpose(0, 1).reshape(b, part_num * z)
 
 
 class RoiEncoder(nn.Module):
     """Single-branch 7-part ROI encoder (encoders.py:83-104): the stem,
     the P crops of the unmasked feature map, the shared tower, visibility
-    zeroing. Output: [B, part_num*z] (224 dims for z=32, P=7). Its
-    submodules carry flax's auto-names (`_Stem_0`, `_RoiTower_0`)."""
+    zeroing, part dropout (`_apply_vis`). Output: [B, part_num*z] (224
+    dims for z=32, P=7). Its submodules carry flax's auto-names
+    (`_Stem_0`, `_RoiTower_0`)."""
 
     def __init__(self, part_num: int = 7, z_num: int = 32,
                  repeat_num: int = 5, hidden_num: int = 128,
                  roi_size: int = 48, activation: Callable = F.relu,
-                 in_ch: int = 3, dtype: torch.dtype = torch.float32):
+                 in_ch: int = 3, dtype: torch.dtype = torch.float32,
+                 keep_part_prob: float = 1.0):
         super().__init__()
         self.part_num = part_num
         self.roi_size = roi_size
+        self.keep_part_prob = keep_part_prob
         self._Stem_0 = _Stem(in_ch, hidden_num, activation, dtype)
         self._RoiTower_0 = _RoiTower(z_num, repeat_num, hidden_num, roi_size,
                                      activation, dtype)
 
-    def forward(self, x, part_bbox, part_vis):
-        """x [B,H,W,3] (NHWC), part_bbox [B,P,4] int, part_vis [B,P] ->
-        [B, P*z]."""
+    def forward(self, x, part_bbox, part_vis, part_noise=None):
+        """x [B,H,W,3] (NHWC), part_bbox [B,P,4] int, part_vis [B,P],
+        part_noise [P,B,1] uniforms (part dropout) -> [B, P*z]."""
         x = self._Stem_0(x.permute(0, 3, 1, 2))
         rois = crop_body_rois(x.permute(0, 2, 3, 1), part_bbox,
                               self.roi_size)                  # [P*B,r,r,C]
         fea = self._RoiTower_0(rois.permute(0, 3, 1, 2))
-        return _apply_vis(fea, part_vis, self.part_num)
+        return _apply_vis(fea, part_vis, self.part_num, self.keep_part_prob,
+                          part_noise)
 
 
 class RoiEncoderFgBg(nn.Module):
     """FG/BG two-branch ROI encoder (encoders.py:107-142).
 
-    FG: feature map masked by fg_mask, 7 ROI crops -> shared tower -> 7*z.
+    FG: feature map masked by fg_mask, 7 ROI crops -> shared tower -> 7*z,
+    visibility zeroing and part dropout (`_apply_vis`).
     BG: feature map masked by (1-fg_mask) -> own tower -> 4*z code.
     Output: [B, part_num*z + 4*z] (352 dims for z=32, P=7).
     """
@@ -118,10 +134,12 @@ class RoiEncoderFgBg(nn.Module):
     def __init__(self, img_h: int, img_w: int, part_num: int = 7,
                  z_num: int = 32, repeat_num: int = 5, hidden_num: int = 128,
                  roi_size: int = 48, activation: Callable = F.relu,
-                 in_ch: int = 3, dtype: torch.dtype = torch.float32):
+                 in_ch: int = 3, dtype: torch.dtype = torch.float32,
+                 keep_part_prob: float = 1.0):
         super().__init__()
         self.part_num = part_num
         self.roi_size = roi_size
+        self.keep_part_prob = keep_part_prob
         self._Stem_0 = _Stem(in_ch, hidden_num, activation, dtype)
         self.fg_tower = _RoiTower(z_num, repeat_num, hidden_num, roi_size,
                                   activation, dtype)
@@ -131,9 +149,10 @@ class RoiEncoderFgBg(nn.Module):
                                               hidden_num), z_num * 4,
                            dtype=dtype)
 
-    def forward(self, x, fg_mask, part_bbox, part_vis):
+    def forward(self, x, fg_mask, part_bbox, part_vis, part_noise=None):
         """x [B,H,W,3], fg_mask [B,H,W,1] (NHWC), part_bbox [B,P,4] int,
-        part_vis [B,P] -> [B, P*z + 4*z]."""
+        part_vis [B,P], part_noise [P,B,1] uniforms (part dropout of the FG
+        parts, `_apply_vis`) -> [B, P*z + 4*z]."""
         x = self._Stem_0(x.permute(0, 3, 1, 2))
         m = fg_mask.permute(0, 3, 1, 2).to(x.dtype)
         x_fg = x * m
@@ -142,7 +161,8 @@ class RoiEncoderFgBg(nn.Module):
         rois = crop_body_rois(x_fg.permute(0, 2, 3, 1), part_bbox,
                               self.roi_size)                  # [P*B,r,r,C]
         fea = self.fg_tower(rois.permute(0, 3, 1, 2))
-        fg = _apply_vis(fea, part_vis, self.part_num)
+        fg = _apply_vis(fea, part_vis, self.part_num, self.keep_part_prob,
+                        part_noise)
 
         bg = self.bg_fc(flatten_nhwc(self.bg_tower(x_bg)))
         return torch.cat([fg, bg], dim=-1)

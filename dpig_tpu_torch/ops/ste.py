@@ -1,10 +1,14 @@
-"""Straight-through estimators (port of `dpig_tpu/ops/ste.py:12-17`;
-reference models.py:91-111).
+"""Straight-through estimators (port of `dpig_tpu/ops/ste.py`;
+reference models.py:91-130).
 
-`bernoulli_sample` (part dropout) is not ported yet: nothing in the port
-draws it (ROADMAP §1, "The remaining CLI modes and options").
+The JAX package draws `bernoulli_sample`'s uniforms from its threefry
+rng; the port cannot reproduce those numbers, so it takes them as a
+tensor (`uniform_noise` draws them from an explicit torch.Generator), as
+it does with the JAX package's other randomness.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -17,3 +21,22 @@ def binary_round(x: torch.Tensor) -> torch.Tensor:
     Reference models.py:97-111 `binaryRound`.
     """
     return x + (torch.round(x) - x).detach()
+
+
+def uniform_noise(gen: torch.Generator, shape: Sequence[int],
+                  device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """U[0, 1) draws of `shape` from `gen` (a CPU generator: the card and
+    the CPU get the same numbers), on `device`."""
+    return torch.rand(tuple(shape), generator=gen, dtype=dtype).to(device)
+
+
+def bernoulli_sample(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Sample {0,1} with P(1)=x given the uniforms `noise` (x's shape),
+    with a straight-through gradient w.r.t. x, in the JAX operation order:
+    ceil(x - U), then x + stop_gradient(hard - x).
+
+    Reference models.py:113-130 `bernoulliSample`.
+    """
+    hard = torch.ceil(x - noise.to(x.dtype))
+    return x + (hard - x).detach()

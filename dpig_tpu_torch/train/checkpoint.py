@@ -137,18 +137,24 @@ def load_tree(path: str) -> Dict:
 def restore_into_state(path: str, state: GanState) -> GanState:
     """Full resume (reference --ckpt_path): params, frozen nets, D running
     statistics, optimizer moments and step, loaded in place into `state`'s
-    nets and optimizers (strict: a missing or extra tensor raises)."""
+    nets and optimizers (strict: a missing or extra tensor raises). As in
+    the JAX package (checkpoint.py:84-110), a tree without optimizer
+    states, frozen nets or a D (an imported TF1 checkpoint,
+    `train/tf1_import.py`) leaves those of `state` as they are."""
     tree = load_tree(path)
     for k, m in state.g_nets.items():
         m.load_state_dict(tree["g_params"][k], strict=True)
-    for k, m in state.frozen_nets.items():
-        m.load_state_dict(tree["frozen_params"][k], strict=True)
-    if state.d_nets is not None:
+    if tree.get("frozen_params") is not None:
+        for k, m in state.frozen_nets.items():
+            m.load_state_dict(tree["frozen_params"][k], strict=True)
+    if state.d_nets is not None and "d_params" in tree:
         for k, m in state.d_nets.items():
             m.load_state_dict({**tree["d_params"][k], **tree["d_stats"][k]},
                               strict=True)
-        state.d_opt.load_state_dict(tree["d_opt_state"])
-    state.g_opt.load_state_dict(tree["g_opt_state"])
+        if tree.get("d_opt_state") is not None:
+            state.d_opt.load_state_dict(tree["d_opt_state"])
+    if tree.get("g_opt_state") is not None:
+        state.g_opt.load_state_dict(tree["g_opt_state"])
     state.step = int(tree["step"])
     return state
 
@@ -185,13 +191,22 @@ def compose_pretrained(cfg) -> Dict[str, Dict[str, torch.Tensor]]:
         merged.update(restore_subtrees(cfg.pretrained_poseAE_path,
                                        ["PoseAE"]))
     if cfg.pretrained_appSample_path:
-        try:
-            merged.update(restore_subtrees(
-                cfg.pretrained_appSample_path,
-                ["Gaussian_FC_Fg", "Gaussian_FC_Bg"]))
-        except KeyError:  # DeepFashion's single mapper (model 103)
-            merged.update(restore_subtrees(cfg.pretrained_appSample_path,
-                                           ["Gaussian_FC"]))
+        # Market's FG/BG mappers (model 3), DeepFashion's single mapper
+        # (model 103), or both where a checkpoint holds both (an imported
+        # TF1 checkpoint, `train/tf1_import.py`), so the DeepFashion
+        # testers find their mapper there too
+        found: Dict[str, Dict[str, torch.Tensor]] = {}
+        for names in (["Gaussian_FC_Fg", "Gaussian_FC_Bg"], ["Gaussian_FC"]):
+            try:
+                found.update(restore_subtrees(cfg.pretrained_appSample_path,
+                                              names))
+            except KeyError:
+                continue
+        if not found:
+            raise KeyError(f"no appearance mapper (Gaussian_FC_Fg and "
+                           f"Gaussian_FC_Bg, or Gaussian_FC) in "
+                           f"{cfg.pretrained_appSample_path}")
+        merged.update(found)
     if cfg.pretrained_poseSample_path:
         merged.update(restore_subtrees(cfg.pretrained_poseSample_path,
                                        ["PoseGaussian"]))

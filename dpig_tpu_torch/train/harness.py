@@ -6,8 +6,10 @@ optimizers (`train/state.py`).
 Observability: metrics go to `<model_dir>/metrics.jsonl` and stdout, the
 `hist/` embedding arrays of the Stage-II samplers as their mean and
 standard deviation (harness.py:71-82), previews to PNG grids with the mean
-SSIM in the file name (trainer.py:522-524). Not ported: TensorBoard
-events.
+SSIM in the file name (trainer.py:522-524). The same scalars (`loss/<k>`)
+and histograms go to a TensorBoard event file in model_dir
+(`train/events.py`, no TensorFlow needed), as the JAX package writes them
+through tf.summary where TF imports (harness.py:37-46,84-92).
 
 Across processes (`parallel.dist`) every rank runs the same loop on its
 own loader's batches (its rows of the global batch) and its rows of the
@@ -33,6 +35,7 @@ from ..ops.pose import render_pose_maps
 from ..parallel import dist
 from ..utils.viz import pose_to_gray, save_image
 from . import checkpoint as ckpt
+from .events import EventWriter
 from .state import GanState
 
 
@@ -52,6 +55,7 @@ class Trainer:
         self.noise_gen = torch.Generator().manual_seed(cfg.random_seed)
         os.makedirs(cfg.model_dir, exist_ok=True)
         self.metrics_path = os.path.join(cfg.model_dir, "metrics.jsonl")
+        self.events: Optional[EventWriter] = None  # opened by the first log
 
     # ------------------------------------------------------------- state
     def init_state(self) -> GanState:
@@ -79,7 +83,9 @@ class Trainer:
     def log_metrics(self, step: int, metrics: Dict[str, float],
                     hists: Optional[Dict[str, np.ndarray]] = None) -> None:
         """Scalars, and each array of `hists` as `<name>_mean` /
-        `<name>_std` (float64, as the JAX package)."""
+        `<name>_std` (float64, as the JAX package), to metrics.jsonl and
+        stdout; the scalars as `loss/<k>` and each array as a histogram to
+        the event file."""
         if dist.rank() != 0:
             return
         rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
@@ -89,6 +95,13 @@ class Trainer:
             rec[f"{name}_std"] = float(flat.std())
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        if self.events is None:
+            self.events = EventWriter(self.cfg.model_dir)
+        self.events.scalars(step, {f"loss/{k}": v for k, v in rec.items()
+                                   if k != "step"})
+        for name, arr in (hists or {}).items():
+            self.events.histogram(step, name, arr)
+        self.events.flush()
         print(f"[{step}] " + " ".join(f"{k}={v:.4f}" for k, v in rec.items()
                                       if k != "step"), flush=True)
 
@@ -133,6 +146,8 @@ class Trainer:
                 ckpt.save_checkpoint(cfg.model_dir, step, state)
 
         ckpt.save_checkpoint(cfg.model_dir, cfg.max_step, state)
+        if self.events is not None:
+            self.events.close()
         return state
 
     def step(self, state: GanState) -> Dict[str, Any]:

@@ -1,7 +1,10 @@
-"""The port imports nothing of JAX or of the JAX package, and refuses to
+"""The port imports nothing of JAX, of the JAX package or of TensorFlow
+(it reads TF1 checkpoints itself, `train/tf1_bundle.py`), and refuses to
 run on the CPU unless asked."""
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -13,7 +16,8 @@ from dpig_tpu_torch.config import Config
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dpig_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dpig_tpu",
+             "tensorflow"}
 
 
 def _port_files():
@@ -54,9 +58,23 @@ def test_no_port_module_imports_scripts_or_protobuf():
 
 def test_the_scan_sees_a_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
-    f.write_text("import os\nfrom dpig_tpu.ops import pose\n")
-    assert "dpig_tpu" in set(_imported_roots(f))
+    f.write_text("import os\nfrom dpig_tpu.ops import pose\n"
+                 "import tensorflow.compat.v1 as tf1\n")
+    assert {"dpig_tpu", "tensorflow"} <= set(_imported_roots(f))
     assert "dpig_tpu_torch" not in FORBIDDEN
+
+
+def test_the_tf1_import_loads_no_tensorflow():
+    """Importing the TF1 reader, the importer and the CLI twin (where
+    TensorFlow is installed, as here) loads no TensorFlow module."""
+    code = ("import sys; import dpig_tpu_torch.train.tf1_import, "
+            "dpig_tpu_torch.train.tf1_bundle, dpig_tpu_torch.main; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] == 'tensorflow'))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
 def test_default_platform_refuses_to_run_without_a_card(tmp_path):

@@ -39,6 +39,7 @@ import contextlib
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from dpig_tpu_torch.apps.common import batch_to_device
 from dpig_tpu_torch.apps.testers import (ConditionalTransferTester,
@@ -314,6 +315,98 @@ def test_batchnorm_stat_updates_on_the_card(card):
     assert torch.equal(bns[0].running_var, before)
 
 
+# ------------------------------------- the DCGAN D's convs off cuDNN
+def test_dcgan_d_convs_run_without_cudnn_forward_and_backward(
+        card, monkeypatch):
+    """The DCGAN D's float32 convs on the card run PyTorch's own kernels
+    (im2col + cuBLAS), forward and backward, not cuDNN's: the same
+    numbers, bit for bit, as the whole conv run with cuDNN off, and every
+    conv of a D forward and backward goes through `_NativeConv2d` (its
+    forward and backward each inside `torch.backends.cudnn.flags(enabled=
+    False)`, cuDNN read off there). No profiler here: a
+    profiling session in this process left a later test's session
+    empty."""
+    from dpig_tpu_torch.models import layers
+    from dpig_tpu_torch.models.discriminators import DCGANDiscriminator
+    from dpig_tpu_torch.models.layers import conv2d_same, init_weights
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 64, 64, 32, generator=g).to(card)
+    w = (torch.randn(128, 64, 5, 5, generator=g) * 0.02).to(card)
+    b = torch.randn(128, generator=g).to(card)
+    outs = []
+    for route in ("native", "flags"):
+        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+        if route == "native":
+            y = conv2d_same(xs, ws, bs, 2, cudnn=False)
+            grads = torch.autograd.grad((y * y).sum(), (xs, ws, bs))
+        else:
+            with torch.backends.cudnn.flags(enabled=False):
+                y = conv2d_same(xs, ws, bs, 2)
+                grads = torch.autograd.grad((y * y).sum(), (xs, ws, bs))
+        outs.append((y, *grads))
+    for a, c in zip(*outs):
+        assert torch.equal(a, c)
+    assert torch.backends.cudnn.enabled
+    calls = []
+    fn = layers._NativeConv2d
+    fwd, bwd = fn.forward, fn.backward
+
+    def counted(tag, f):
+        def run(ctx, *args):
+            calls.append((tag, torch.backends.cudnn.enabled))
+            return f(ctx, *args)
+        return staticmethod(run)
+
+    real_flags = torch.backends.cudnn.flags
+
+    @contextlib.contextmanager
+    def recorded_flags(*args, **kw):
+        with real_flags(*args, **kw):
+            calls.append(("cudnn off", torch.backends.cudnn.enabled))
+            yield
+    monkeypatch.setattr(fn, "forward", counted("forward", fwd))
+    monkeypatch.setattr(fn, "backward", counted("backward", bwd))
+    monkeypatch.setattr(torch.backends.cudnn, "flags", recorded_flags)
+    d = DCGANDiscriminator(128, 64)
+    init_weights(d, torch.Generator().manual_seed(4))
+    d = d.to(card)
+    img = torch.randn(2, 128, 64, 3, generator=g).to(card)
+    torch.autograd.grad(d(img, update_stats=True).sum(), list(d.parameters()))
+    assert [t for t, _ in calls].count("forward") == d.n_stages
+    assert [t for t, _ in calls].count("backward") == d.n_stages
+    assert calls.count(("cudnn off", False)) == 2 * d.n_stages
+    assert torch.backends.cudnn.enabled
+
+
+def test_train_parity_steps_hold_the_d_gradient_to_float64(card, tmp_path):
+    """[train parity]'s steps (chip_smoke.py phase 7: batch 2 at full
+    Market width), ten times on the CPU and ten on the card, fresh state
+    each, the G after the update set to the first CPU step's: every D
+    gradient within 1e-4 (||diff|| / ||grad||) of the CPU's float64 step
+    from that G. Before the DCGAN D's convs left cuDNN, the card's read
+    9.736e-3 in some of these (cuDNN's float32 backward of `Conv_1`
+    wrong, so `Conv_0`'s weight and bias gradients 1.4e-2 off), the CPU's
+    2.9e-6 always."""
+    from dpig_tpu_torch.apps.stage1_app import Stage1App
+    from dpig_tpu_torch.train.parity import to_float64
+    cfgs = {p: Config(platform=p, batch_size=2, model_dir=str(tmp_path))
+            for p in ("", "cpu")}
+    batch = next(SyntheticLoader(2, 128, 64, seed=99))
+    cpu = torch.device("cpu")
+    first = recorded_train_step(Stage1App(cfgs["cpu"], cpu), batch)
+    wide = recorded_train_step(to_float64(Stage1App(cfgs["cpu"], cpu)),
+                               batch, g_updated=first.g_updated)
+    errs = {"cpu": [], "card": []}
+    for side, dev in (("cpu", cpu), ("card", card)):
+        for _ in range(10):
+            rec = recorded_train_step(Stage1App(cfgs["cpu" if side == "cpu"
+                                                     else ""], dev),
+                                      batch, g_updated=first.g_updated)
+            errs[side].append(step_errors(wide, rec)["Discriminator"])
+    print(f"D gradient against float64: {errs}")
+    assert max(errs["cpu"] + errs["card"]) <= 1e-4, errs
+
+
 def test_kernel_on_a_side_stream(card):
     rcv = torch.from_numpy(_rcv(1, 4, 64, 32, 18, False)).to(card)
     ref = pose.render_pose_maps_plain(rcv, 64, 32)
@@ -544,20 +637,54 @@ def test_pose_kernel_on_a_model4_preview(card, tmp_path):
     assert imgs.shape == (16, 128, 64, 3) and bool(torch.isfinite(imgs).all())
 
 
+class _HostToCardCopies(TorchDispatchMode):
+    """Every op that reads a host tensor and writes a card one:
+    (op, whether the host tensor is pinned, non_blocking)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        host = [a for a in args if isinstance(a, torch.Tensor)
+                and a.device.type == "cpu"]
+        outs = out if isinstance(out, (tuple, list)) else [out]
+        if host and any(isinstance(o, torch.Tensor) and o.is_cuda
+                        for o in outs):
+            non_blocking = kwargs.get("non_blocking", args[2] if func is
+                                      torch.ops.aten.copy_.default
+                                      and len(args) > 2 else False)
+            self.seen.append((func.__name__, host[0].is_pinned(),
+                              bool(non_blocking)))
+        return out
+
+
 def test_step_noise_is_one_copy(card, tmp_path):
     """A Stage-II step's noise (G draw and five critic draws) reaches the
     card in one host-to-device copy, from pinned memory, with the numbers
-    the CPU draws from the same seed."""
+    the CPU draws from the same seed: one op moves host data to the card,
+    its source pinned and the copy non-blocking, and the profiler's CUDA
+    runtime records hold one `cudaMemcpyAsync`. (Its device records are
+    not read: on the card's machine a short session in a process older
+    than about two minutes loses them, whatever ran before; 0 of 10
+    sessions kept the copy after a 120 s sleep, 10 of 10 in a fresh
+    process, scripts/port_fault_probe.py profiler, ROADMAP §3.)"""
     from torch.profiler import ProfilerActivity, profile
     from dpig_tpu_torch.apps.stage2_app import Stage2AppApp
     app = Stage2AppApp(Config(platform="", model_dir=str(tmp_path), **SMALL),
                        card)
     torch.cuda.synchronize()
+    copies = _HostToCardCopies()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        noise = app.step_noise(torch.Generator().manual_seed(3), 4)
+        with copies:
+            noise = app.step_noise(torch.Generator().manual_seed(3), 4)
         torch.cuda.synchronize()
-    copies = [e.name for e in prof.events() if "HtoD" in e.name]
-    assert len(copies) == 1 and "Pinned" in copies[0], copies
+    assert copies.seen == [("_to_copy.default", True, True)], copies.seen
+    calls = [e.name for e in prof.events() if e.name.startswith(
+        ("cudaMemcpy", "cuMemcpy"))]
+    assert calls == ["cudaMemcpyAsync"], calls
     want = torch.randn((24, 352), generator=torch.Generator().manual_seed(3))
     assert torch.equal(noise.cpu(), (want * 0.2).view(6, 4, 352))
 
@@ -1111,95 +1238,42 @@ def test_int8_gate_on_the_card_matches_the_cpu(card, tmp_path):
         assert abs(got[k] - v) <= gap / 2, (k, got[k], v, gap)
 
 
-# ------------------------------------- the DCGAN D's convs off cuDNN
-# Last in the file: with these two before it, test_step_noise_is_one_copy's
-# profiling session came back empty in two of three runs on the card.
-def test_dcgan_d_convs_run_without_cudnn_forward_and_backward(
-        card, monkeypatch):
-    """The DCGAN D's float32 convs on the card run PyTorch's own kernels
-    (im2col + cuBLAS), forward and backward, not cuDNN's: the same
-    numbers, bit for bit, as the whole conv run with cuDNN off, and every
-    conv of a D forward and backward goes through `_NativeConv2d` (its
-    forward and backward each inside `torch.backends.cudnn.flags(enabled=
-    False)`, cuDNN read off there). No profiler here: a
-    profiling session in this process left a later test's session
-    empty."""
-    from dpig_tpu_torch.models import layers
-    from dpig_tpu_torch.models.discriminators import DCGANDiscriminator
-    from dpig_tpu_torch.models.layers import conv2d_same, init_weights
-    g = torch.Generator().manual_seed(3)
-    x = torch.randn(2, 64, 64, 32, generator=g).to(card)
-    w = (torch.randn(128, 64, 5, 5, generator=g) * 0.02).to(card)
-    b = torch.randn(128, generator=g).to(card)
-    outs = []
-    for route in ("native", "flags"):
-        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
-        if route == "native":
-            y = conv2d_same(xs, ws, bs, 2, cudnn=False)
-            grads = torch.autograd.grad((y * y).sum(), (xs, ws, bs))
-        else:
-            with torch.backends.cudnn.flags(enabled=False):
-                y = conv2d_same(xs, ws, bs, 2)
-                grads = torch.autograd.grad((y * y).sum(), (xs, ws, bs))
-        outs.append((y, *grads))
-    for a, c in zip(*outs):
-        assert torch.equal(a, c)
-    assert torch.backends.cudnn.enabled
-    calls = []
-    fn = layers._NativeConv2d
-    fwd, bwd = fn.forward, fn.backward
+# ------------------------------------------------------- TF1 checkpoints
+def test_tf1_bundle_imported_on_the_card(card, tmp_path, capsys):
+    """A TF1 bundle written by `write_bundle` (this machine has no
+    TensorFlow to write one) of every scope of the small config's nets,
+    read back bit for bit, imported by the CLI twin on the card, and model
+    12 from the imported checkpoint through --pretrained_path: the same
+    transfer step, bit for bit, as the tester on the source weights; no
+    TensorFlow module loaded."""
+    import sys
+    from dpig_tpu_torch.train import checkpoint as ckpt
+    from dpig_tpu_torch.train import tf1_bundle, tf1_import
+    source = tf1_import.template_state(Config(
+        platform="", model_dir=str(tmp_path / "src"), random_seed=4,
+        **SMALL))
+    var = tf1_import.reference_variables(source, 32, 16)
+    prefix = tf1_bundle.write_bundle(str(tmp_path / "ref" / "model.ckpt"),
+                                     var)
+    back = tf1_bundle.read_bundle(prefix)
+    assert sorted(back) == sorted(var)
+    assert all(back[n].tobytes() == v.tobytes() for n, v in var.items())
+    out = str(tmp_path / "imported")
+    tf1_import.main([f"--ckpt_path={prefix}", f"--model_dir={out}",
+                     *(f"--{k}={v}" for k, v in SMALL.items())])
+    assert "scopes not found" not in capsys.readouterr().out
+    tree = ckpt.load_tree(out)
+    for sub in ("Encoder", "ID_AE", "PoseAE"):
+        for n, t in source[sub].items():
+            assert torch.equal(tree["g_params"][sub][n], t), (sub, n)
+    batch = batch_to_device(next(SyntheticLoader(4, 32, 16, seed=3)), card)
+    got = ConditionalTransferTester(Config(
+        platform="", model_dir=str(tmp_path / "m12"), pretrained_path=out,
+        **SMALL)).transfer_step(batch)
+    want = ConditionalTransferTester(Config(
+        platform="", model_dir=str(tmp_path / "m12s"), **SMALL), params={
+            k: source[k] for k in ("Encoder", "ID_AE")}).transfer_step(batch)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not any(m.split(".")[0] == "tensorflow" for m in sys.modules)
 
-    def counted(tag, f):
-        def run(ctx, *args):
-            calls.append((tag, torch.backends.cudnn.enabled))
-            return f(ctx, *args)
-        return staticmethod(run)
-
-    real_flags = torch.backends.cudnn.flags
-
-    @contextlib.contextmanager
-    def recorded_flags(*args, **kw):
-        with real_flags(*args, **kw):
-            calls.append(("cudnn off", torch.backends.cudnn.enabled))
-            yield
-    monkeypatch.setattr(fn, "forward", counted("forward", fwd))
-    monkeypatch.setattr(fn, "backward", counted("backward", bwd))
-    monkeypatch.setattr(torch.backends.cudnn, "flags", recorded_flags)
-    d = DCGANDiscriminator(128, 64)
-    init_weights(d, torch.Generator().manual_seed(4))
-    d = d.to(card)
-    img = torch.randn(2, 128, 64, 3, generator=g).to(card)
-    torch.autograd.grad(d(img, update_stats=True).sum(), list(d.parameters()))
-    assert [t for t, _ in calls].count("forward") == d.n_stages
-    assert [t for t, _ in calls].count("backward") == d.n_stages
-    assert calls.count(("cudnn off", False)) == 2 * d.n_stages
-    assert torch.backends.cudnn.enabled
-
-
-def test_train_parity_steps_hold_the_d_gradient_to_float64(card, tmp_path):
-    """[train parity]'s steps (chip_smoke.py phase 7: batch 2 at full
-    Market width), ten times on the CPU and ten on the card, fresh state
-    each, the G after the update set to the first CPU step's: every D
-    gradient within 1e-4 (||diff|| / ||grad||) of the CPU's float64 step
-    from that G. Before the DCGAN D's convs left cuDNN, the card's read
-    9.736e-3 in some of these (cuDNN's float32 backward of `Conv_1`
-    wrong, so `Conv_0`'s weight and bias gradients 1.4e-2 off), the CPU's
-    2.9e-6 always."""
-    from dpig_tpu_torch.apps.stage1_app import Stage1App
-    from dpig_tpu_torch.train.parity import to_float64
-    cfgs = {p: Config(platform=p, batch_size=2, model_dir=str(tmp_path))
-            for p in ("", "cpu")}
-    batch = next(SyntheticLoader(2, 128, 64, seed=99))
-    cpu = torch.device("cpu")
-    first = recorded_train_step(Stage1App(cfgs["cpu"], cpu), batch)
-    wide = recorded_train_step(to_float64(Stage1App(cfgs["cpu"], cpu)),
-                               batch, g_updated=first.g_updated)
-    errs = {"cpu": [], "card": []}
-    for side, dev in (("cpu", cpu), ("card", card)):
-        for _ in range(10):
-            rec = recorded_train_step(Stage1App(cfgs["cpu" if side == "cpu"
-                                                     else ""], dev),
-                                      batch, g_updated=first.g_updated)
-            errs[side].append(step_errors(wide, rec)["Discriminator"])
-    print(f"D gradient against float64: {errs}")
-    assert max(errs["cpu"] + errs["card"]) <= 1e-4, errs
