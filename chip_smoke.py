@@ -233,7 +233,7 @@ Phases, each printing one line; any failure exits non-zero:
               at full width: Market `train` QUALITY_STEPS at bs64
               (bfloat16, fast D step; ms per step, images/s), `check`,
               `check --transfer`, `check --per_layer`, `sweep` (all six
-              rows) and `gate` (exit code as its verdict line); then
+              rows, on SWEEP_BATCHES batches) and `gate` (exit code as its verdict line); then
               `--size=256`: `train` QUALITY_256_STEPS at bs16, `check`,
               `sweep`, `gate`; each path's s8 launches per route and pose
               launches as `_gate_launches` counts them; the s8 conv on
@@ -285,6 +285,29 @@ Phases, each printing one line; any failure exits non-zero:
               pose launches (2 / 3 per batch); the bundle's bytes and its
               write, read and import seconds with the card's name and
               power limit.
+28. zoo      the modules no CLI path reaches, at their JAX defaults' full
+              width, batch ZOO_BATCH, float32: ResnetGenerator (128x64,
+              dim 64, 6 blocks a scale, z 128), ResnetDiscriminator and
+              MultiplicativeDCGANDiscriminator (128x64, dim 64),
+              DCGANDiscriminatorAttr (27 attributes, dim 64, keep 0.5 on
+              seeded masks, on 8x4 maps of 640 channels, the Market
+              encoder tower's output), DCGANGenerator (64x64, dim 64),
+              FCGenerator (out 128*64*3), PlainEncoder (z 64, repeat 5,
+              hidden 128, image + 18-channel pose), PlainDecoder (128x64,
+              repeat 5, hidden 128), the DCGAN (4 stages), Region and
+              Patch Ds in 'wgan-gp' (LayerNorm), SSIM at 128x64 and
+              256x256, MS-SSIM at 256x256: finite outputs, device ms of the
+              forward (CUDA graph replay; SSIM's by CUDA events, its window
+              is copied in each call) and of forward + backward (CUDA
+              events), card vs CPU at batch 2 on the same weights and
+              inputs within ZOO_PARITY_TOL; one WGAN-GP critic step
+              (`losses/gan.py:d_loss("wgan-gp")`, alpha a tensor) of the
+              'wgan-gp' DCGAN D and of ResnetDiscriminator: the penalty,
+              device ms at ZOO_BATCH, the critic's gradients card vs CPU
+              at batch 2; `utils/plot.load_metrics` on phase 6's
+              metrics.jsonl: the logged steps and values. No hand kernel
+              runs here (`plot_metrics` needs matplotlib, not on the
+              card's machine).
 
 The line before the last is {"kernels": [...]}: the pose kernel with its
 launches on each path, and the s8 conv's four routes (wgmma, narrow_ci,
@@ -3414,10 +3437,11 @@ def phase_ddp(tmp):
 SCORE_TOL = 1e-9
 # The gate at full width: Market train steps (bs64, bfloat16, fast D
 # step) and its pool, the 256 ones (bs16); check/sweep/gate score
-# QUALITY_BATCHES - 1 held-out batches after the calibration one.
+# QUALITY_BATCHES - 1 held-out batches after the calibration one; the
+# sweep (six schemes) scores SWEEP_BATCHES - 1 (cut from 3 for time).
 QUALITY_STEPS, QUALITY_POOL = 10, 8
 QUALITY_256_STEPS, QUALITY_256_POOL = 4, 4
-QUALITY_BATCHES = 4
+QUALITY_BATCHES, SWEEP_BATCHES = 4, 2
 GATE_KEYS = ("ssim_int8_float", "ssim_to_target_float",
              "ssim_to_target_int8", "delta")
 
@@ -3474,9 +3498,9 @@ def phase_score(model_dir):
 def _gate_launches(kind, steps=0):
     """(s8 launches, of them the stem's on narrow_ci and to_rgb's on
     narrow_co, pose launches) one gate path must make, with
-    QUALITY_BATCHES held-out batches: the first calibrates (the float
-    stats forward: no s8), each other one renders its pose and runs the
-    int8 generator (G convs: one stem, one to_rgb); --transfer adds the
+    QUALITY_BATCHES held-out batches (SWEEP_BATCHES for the sweep): the
+    first calibrates (the float stats forward: no s8), each other one
+    renders its pose and runs the int8 generator (G convs: one stem, one to_rgb); --transfer adds the
     int8 encoder (E convs, all wgmma) on every batch; --per_layer runs the
     legacy graph (no s8 stem: G - 1 convs, one to_rgb) twice whole and
     once without each of the other G - 1 table layers (to_rgb among them);
@@ -3485,6 +3509,8 @@ def _gate_launches(kind, steps=0):
     without the stem."""
     g, e, n = S8_GENERATOR_CONVS, S8_ENCODER_CONVS, QUALITY_BATCHES - 1
     legacy = g - 1
+    if kind == "sweep":
+        n = SWEEP_BATCHES - 1
     return {"train": (0, 0, 0, steps),
             "check": (n * g, n, n, n + 1),
             "check --transfer": (e + n * (e + g), n, n, n + 1),
@@ -3531,7 +3557,8 @@ def phase_quality(tmp, df_entries):
                 ["check", mdir, "--transfer"])
             runs["check --per_layer"] = lambda: pq.main(
                 ["check", mdir, "--per_layer"])
-        runs["sweep"] = lambda: pq.sweep(mdir, cfg_overrides=overrides)
+        runs["sweep"] = lambda: pq.sweep(mdir, SWEEP_BATCHES,
+                                         cfg_overrides=overrides)
         runs["gate"] = lambda: pq.main(["gate", mdir, *flags])
         for kind, run in runs.items():
             times.clear()
@@ -4028,6 +4055,285 @@ def phase_tf1_import(tmp):
     return by_path
 
 
+ZOO_BATCH = 16
+# [zoo]'s card vs CPU check at batch 2, float32, TF32 off, on two errors:
+# max |diff| of the outputs over their largest |value| (for a critic
+# step, of its Wasserstein term and penalty, held at the gradients' floor:
+# the penalty is a gradient's norm), and ||diff|| / ||grad|| over
+# the gradients of sum(out * W) w.r.t. every parameter and input (for a
+# critic step, of its loss w.r.t. the critic's parameters). Each is read
+# against the CPU's float64 run of the same module, weights and inputs:
+# the card's float32 must be within ZOO_PARITY_TOL of it, or at most
+# ZOO_FLOAT32_FACTOR times as far as the CPU's float32. The floors are
+# PARITY_TOL and TRAIN_PARITY_TOL's G-gradient limit; a wiring fault
+# reads O(1e-1). Card against CPU float32 is printed, but is no limit:
+# at batch 2 the deep nets' gradients are ill-conditioned in float32
+# (this phase on an NVIDIA H100 80GB HBM3 at 700 W): from the CPU's
+# float64 the ResnetGenerator's read 7.3e-3 on the CPU and 9.7e-3
+# on the card, the ResnetDiscriminator's 1.0e-2 / 2.0e-3, the
+# PlainDecoder's 1.3e-4 / 9.1e-4 (9.0e-4 with cuDNN off); the
+# DCGANGenerator's 8.8e-7 / 1.4e-4, where cuDNN's float32 5x5 convs are
+# the gap (5.6e-7 with cuDNN off).
+ZOO_PARITY_TOL = {"out": 1e-4, "grad": 5e-3}
+ZOO_FLOAT32_FACTOR = 4.0
+
+
+def _zoo_modules():
+    """(name, make, inputs(batch, gen), call) of every [zoo] module; the
+    weights come from a seeded init with each 1-D parameter moved off it,
+    so that a bias or a scale counts in the parity."""
+    from dpig_tpu_torch.models import discriminators as disc
+    from dpig_tpu_torch.models import encoders, generator, zoo
+
+    def noise(dim):
+        return lambda b, g: [torch.randn(b, dim, generator=g)]
+
+    def images(h, w, c=3):
+        return lambda b, g: [torch.rand(b, h, w, c, generator=g) * 2 - 1]
+
+    attr = disc.DCGANDiscriminatorAttr(8, 4, 640, attr_num=27, dim=64,
+                                       keep_prob=0.5)
+
+    def attr_inputs(b, g):
+        masks = [torch.rand(s, generator=g) < 0.5
+                 for s in attr.keep_mask_shapes(b)]
+        return [torch.randn(b, 8, 4, 640, generator=g), masks]
+
+    plain = lambda m, *xs: m(*xs)  # noqa: E731
+    return [
+        ("ResnetGenerator", lambda: zoo.ResnetGenerator(
+            128, 128, 64, dim=64, blocks_per_scale=6), noise(128), plain),
+        ("ResnetDiscriminator", lambda: disc.ResnetDiscriminator(
+            128, 64, dim=64, blocks_per_scale=6), images(128, 64), plain),
+        ("MultiplicativeDCGANDiscriminator",
+         lambda: disc.MultiplicativeDCGANDiscriminator(128, 64, dim=64),
+         images(128, 64), plain),
+        ("DCGANDiscriminatorAttr", lambda: attr, attr_inputs,
+         lambda m, x, masks: m(x, keep_masks=masks)),
+        ("DCGANGenerator", lambda: zoo.DCGANGenerator(128, 64, 64, dim=64),
+         noise(128), plain),
+        ("FCGenerator", lambda: zoo.FCGenerator(128, 128 * 64 * 3),
+         noise(128), plain),
+        ("PlainEncoder", lambda: encoders.PlainEncoder(
+            128, 64, 3 + 18, z_num=64, repeat_num=5, hidden_num=128),
+         lambda b, g: images(128, 64)(b, g) + images(128, 64, 18)(b, g),
+         plain),
+        ("PlainDecoder", lambda: generator.PlainDecoder(
+            64, 128, 64, repeat_num=5, hidden_num=128), noise(64), plain),
+        *[(f"{arch} wgan-gp", functools.partial(
+            disc.get_discriminator, arch, 128, 64, mode="wgan-gp"),
+           images(128, 64), plain)
+          for arch in ("DCGAN", "DCGANRegion", "Patch")],
+    ]
+
+
+def _zoo_init(make, seed):
+    from dpig_tpu_torch.models.layers import init_weights
+    m = make()
+    g = torch.Generator().manual_seed(seed)
+    init_weights(m, g)
+    with torch.no_grad():
+        for p in m.parameters():
+            if p.dim() == 1:
+                p.add_(torch.rand(p.shape, generator=g) * 0.4 - 0.2)
+    return m
+
+
+def _to(xs, dev):
+    return [[t.to(dev) for t in x] if isinstance(x, list) else x.to(dev)
+            for x in xs]
+
+
+def _float_inputs(xs):
+    return [x for x in xs if torch.is_tensor(x) and x.is_floating_point()]
+
+
+def _event_ms(fn, reps=3):
+    """Device ms of one call by CUDA events around `reps` eager calls after
+    a warm-up (the launch gaps of a host-bound call included)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _out_grads(m, call, xs, weight_seed=13):
+    """The output and the gradients of sum(out * W) w.r.t. m's parameters
+    and the float inputs, as CPU tensors."""
+    xs = [x.detach().requires_grad_(True)
+          if torch.is_tensor(x) and x.is_floating_point() else x for x in xs]
+    out = call(m, *xs)
+    w = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+        weight_seed)).to(out.device)
+    grads = torch.autograd.grad((out * w).sum(), list(m.parameters())
+                                + _float_inputs(xs))
+    return out.detach().cpu(), [t.cpu() for t in grads]
+
+
+def _float64(m):
+    """A float64 copy of module `m`, its compute dtype float64 too."""
+    import copy
+    m64 = copy.deepcopy(m).double()
+    for sub in m64.modules():
+        if isinstance(getattr(sub, "dtype", None), torch.dtype):
+            sub.dtype = torch.float64
+    return m64
+
+
+def _f64(xs):
+    return [x.double() if torch.is_tensor(x) and x.is_floating_point()
+            else x for x in xs]
+
+
+def _zoo_held(tag, card, cpu, cpu64, tol=ZOO_PARITY_TOL):
+    """[zoo]'s check of one module's (out, grads) readings: see
+    ZOO_PARITY_TOL. Prints and returns the errors; raises past them."""
+    direct = _rel(card, cpu)
+    got, ref = _rel(card, cpu64), _rel(cpu, cpu64)
+    limits = [max(t, ZOO_FLOAT32_FACTOR * r)
+              for t, r in zip(tol.values(), ref)]
+    print(f"[zoo]   {tag} card vs CPU at batch 2: out {direct[0]:.3e}, "
+          f"grads {direct[1]:.3e}; from the CPU's float64: card "
+          f"{got[0]:.3e} / {got[1]:.3e}, CPU float32 {ref[0]:.3e} / "
+          f"{ref[1]:.3e} (limits {limits[0]:.3e} / {limits[1]:.3e})",
+          flush=True)
+    if not all(g <= lim for g, lim in zip(got, limits)):
+        raise AssertionError(f"[zoo] {tag}: card {got} from float64, "
+                             f"limits {limits}")
+    return direct
+
+
+def _rel(got, want):
+    """(max |diff| / max |want| of the outputs, ||diff|| / ||want|| over
+    the gradient lists)."""
+    (o1, g1), (o0, g0) = got, want
+    num = sum(float(((a.double() - b.double()) ** 2).sum())
+              for a, b in zip(g1, g0))
+    den = sum(float((b.double() ** 2).sum()) for b in g0)
+    return (float((o1 - o0).abs().max() / o0.abs().max()),
+            (num / den) ** 0.5)
+
+
+def _zoo_critic_step(m, real, fake, alpha):
+    """One WGAN-GP critic step: (its [Wasserstein term, penalty] as a CPU
+    tensor, its parameter gradients as CPU tensors), the penalty's double
+    backward through `m`."""
+    from dpig_tpu_torch.losses import gan
+    d_real, d_fake = m(real), m(fake)
+    loss = gan.d_loss("wgan-gp", d_real, d_fake, critic_fn=m,
+                      real_data=real, fake_data=fake, alpha=alpha)
+    grads = torch.autograd.grad(loss, list(m.parameters()))
+    w = (d_fake.mean() - d_real.mean()).detach()
+    terms = torch.stack([w, (loss.detach() - w) / gan.GP_LAMBDA])
+    return terms.double().cpu(), [t.cpu() for t in grads]
+
+
+def phase_zoo(m1_dir):
+    """[zoo] (phase 28): see the module docstring."""
+    import copy
+    from dpig_tpu_torch.losses import gan
+    from dpig_tpu_torch.models import discriminators as disc
+    from dpig_tpu_torch.ops import ssim
+    from dpig_tpu_torch.utils import plot
+
+    card = torch.device("cuda")
+    worst = {"out": 0.0, "grad": 0.0}
+    for i, (name, make, inputs, call) in enumerate(_zoo_modules()):
+        m = _zoo_init(make, 20 + i)
+        xs = inputs(ZOO_BATCH, torch.Generator().manual_seed(40 + i))
+        mc, xc = copy.deepcopy(m).to(card), _to(xs, card)
+        with torch.no_grad():
+            out = call(mc, *xc)
+            fwd = _graph_ms(lambda: call(mc, *xc), reps=5, inner=3)
+        params = list(mc.parameters())
+        both = _event_ms(lambda: torch.autograd.grad(
+            call(mc, *xc).float().square().mean(), params))
+        small = [[t[:2] for t in x] if isinstance(x, list) else x[:2]
+                 for x in xs]
+        finite = bool(torch.isfinite(out).all())
+        print(f"[zoo] {name}: {sum(p.numel() for p in params)} params, out "
+              f"{tuple(out.shape)} finite={finite}; forward "
+              f"{fwd:.3f} device ms, forward+backward {both:.3f} at batch "
+              f"{ZOO_BATCH}", flush=True)
+        if not finite:
+            raise AssertionError(f"[zoo] {name}: outputs not finite")
+        errs = _zoo_held(name, _out_grads(mc, call, _to(small, card)),
+                         _out_grads(m, call, small),
+                         _out_grads(_float64(m), call, _f64(small)))
+        worst = {"out": max(worst["out"], errs[0]),
+                 "grad": max(worst["grad"], errs[1])}
+        del mc, xc, out
+
+    g = torch.Generator().manual_seed(60)
+    for fn, (h, w) in ((ssim.ssim, (128, 64)), (ssim.ssim, (256, 256)),
+                       (ssim.ms_ssim, (256, 256))):
+        a = torch.rand(ZOO_BATCH, h, w, 1, generator=g)
+        b = (a + 0.1 * torch.randn(a.shape, generator=g)).clamp(0, 1)
+        ac, bc = a.to(card), b.to(card)
+        value = float(fn(ac, bc))
+        ms = _event_ms(lambda: fn(ac, bc), reps=10)
+        diff = abs(float(fn(ac[:2], bc[:2])) - float(fn(a[:2], b[:2])))
+        print(f"[zoo] {fn.__name__} {h}x{w} batch {ZOO_BATCH}: {value:.6f}; "
+              f"{ms:.3f} device ms; card vs CPU at batch 2: {diff:.3e}",
+              flush=True)
+        if not math.isfinite(value) or diff > ZOO_PARITY_TOL["out"]:
+            raise AssertionError(f"[zoo] {fn.__name__} {h}x{w}: {value}, "
+                                 f"card vs CPU {diff}")
+
+    for name, make in (
+            ("DCGAN wgan-gp", lambda: disc.get_discriminator(
+                "DCGAN", 128, 64, mode="wgan-gp")),
+            ("ResnetDiscriminator", lambda: disc.ResnetDiscriminator(
+                128, 64, dim=64, blocks_per_scale=6))):
+        m = _zoo_init(make, 70)
+        g = torch.Generator().manual_seed(71)
+        real, fake = (torch.rand(ZOO_BATCH, 128, 64, 3, generator=g) * 2 - 1
+                      for _ in range(2))
+        alpha = torch.rand(ZOO_BATCH, 1, 1, 1, generator=g)
+        mc = copy.deepcopy(m).to(card)
+        rc, fc, ac = real.to(card), fake.to(card), alpha.to(card)
+        (w, gp), _ = _zoo_critic_step(mc, rc, fc, ac)
+        ms = _event_ms(lambda: _zoo_critic_step(mc, rc, fc, ac))
+        print(f"[zoo] WGAN-GP critic step, {name}: W term {w:.6f}, penalty "
+              f"{gp:.6f} (loss W + {gan.GP_LAMBDA} x penalty) at batch "
+              f"{ZOO_BATCH}, {ms:.3f} device ms", flush=True)
+        if not (math.isfinite(w) and math.isfinite(gp)):
+            raise AssertionError(f"[zoo] critic step {name}: {w}, {gp}")
+        steps = [_zoo_critic_step(mc, rc[:2], fc[:2], ac[:2]),
+                 _zoo_critic_step(m, real[:2], fake[:2], alpha[:2]),
+                 _zoo_critic_step(_float64(m), *_f64(
+                     [real[:2], fake[:2], alpha[:2]]))]
+        print(f"[zoo]   penalty at batch 2: card {float(steps[0][0][1]):.6f}"
+              f", CPU {float(steps[1][0][1]):.6f}, CPU float64 "
+              f"{float(steps[2][0][1]):.6f}", flush=True)
+        # the penalty is the norm of a gradient (of the critic w.r.t. its
+        # input): it is held at the gradients' floor
+        _zoo_held(f"critic step {name} ((W, penalty), critic grads)",
+                  *steps, tol={"out": ZOO_PARITY_TOL["grad"],
+                               "grad": ZOO_PARITY_TOL["grad"]})
+        del mc
+
+    series = plot.load_metrics(m1_dir)
+    with open(os.path.join(m1_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    want_steps = [s for s in range(TRAIN_STEPS)
+                  if s == 0 or s % TRAIN_LOG_STEP == TRAIN_LOG_STEP - 1]
+    agree = set(series) == set(logged[0]) - {"step"} and all(
+        v == [(r["step"], r[k]) for r in logged] for k, v in series.items())
+    print(f"[zoo] load_metrics on [train]'s metrics.jsonl: {len(series)} "
+          f"series, steps {[s for s, _ in series['L1Loss']]} (logged "
+          f"{want_steps}), equal to the records: {agree}; worst card vs CPU "
+          f"{worst}", flush=True)
+    if not agree or [s for s, _ in series["L1Loss"]] != want_steps:
+        raise AssertionError(f"[zoo] load_metrics {series}")
+
+
 def _timed(phase):
     """`phase`, printing the seconds each call of it took."""
     @functools.wraps(phase)
@@ -4081,6 +4387,7 @@ def main() -> int:
         pipeline = phase_pipeline(tmp)
         critic_ab = phase_critic_ab()
         tf1 = phase_tf1_import(tmp)
+        phase_zoo(os.path.join(tmp, "m1"))
     by_path = {"model 12 transfer": model12, **sampling,
                "model 1 training": train, **stage2, **data, **bf16,
                **int8_pose, **df_train, **df_pose, **modes, **ddp_pose,

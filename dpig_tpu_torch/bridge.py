@@ -10,7 +10,8 @@ the default is the Stage-I nets, `Encoder`, `ID_AE`, `Discriminator` and
   * conv `kernel` HWIO [kh,kw,in,out] -> `weight` OIHW [out,in,kh,kw];
   * Dense `kernel` [in,out]          -> `weight` [out,in];
   * `bias`                           -> `bias`;
-  * BatchNorm `scale`                -> `weight`;
+  * BatchNorm / LayerNorm `scale`    -> `weight`;
+  * InstanceNorm `shift`             -> `bias` (`models/zoo.py`);
   * `stem_kernel` [3,3,D+P,hid]      -> `stem_kernel` [hid,D+P,3,3];
   * BatchNorm stats `mean`/`var`     -> `running_mean`/`running_var`.
 
@@ -49,7 +50,8 @@ STAGE1_SUBTREES = ("Encoder", "ID_AE", "Discriminator",
                    "Discriminator_stats")
 
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
-                 "stem_kernel": "stem_kernel", "stem_bias": "stem_bias"}
+                 "shift": "bias", "stem_kernel": "stem_kernel",
+                 "stem_bias": "stem_bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 

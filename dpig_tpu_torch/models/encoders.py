@@ -1,7 +1,9 @@
-"""Appearance encoders (port of `dpig_tpu/models/encoders.py:27-142`):
-the FG/BG two-branch ROI encoder of the Market Stage I (reference
-models.py:390-471) and the single-branch ROI encoder of the DeepFashion
-256x256 family (models.py:275-325).
+"""Appearance encoders (port of `dpig_tpu/models/encoders.py`): the FG/BG
+two-branch ROI encoder of the Market Stage I (reference models.py:
+390-471), the single-branch ROI encoder of the DeepFashion 256x256
+family (models.py:275-325), and the plain conv encoder and
+`tile_embedding` that no app reaches (models.py:224-250,
+trainer.py:588-590).
 
 The P per-part crops are folded into the batch axis ([P*B, C, roi, roi])
 so the weight-shared ROI tower runs as one conv stack. `dtype` is the
@@ -166,3 +168,40 @@ class RoiEncoderFgBg(nn.Module):
 
         bg = self.bg_fc(flatten_nhwc(self.bg_tower(x_bg)))
         return torch.cat([fg, bg], dim=-1)
+
+
+class PlainEncoder(nn.Module):
+    """Plain conv encoder (encoders.py:145-162; models.py:224-250
+    GeneratorCNN_ID_Encoder): the image and, if given, the pose maps
+    concatenated on the channels (`in_ch` counts both), a 3x3 `Conv_0`
+    and `activation` (ELU), `ConvBlockTower_0`, the NHWC flatten and
+    `Dense_0` -> [B, z_num]."""
+
+    def __init__(self, img_h: int, img_w: int, in_ch: int = 3,
+                 z_num: int = 64, repeat_num: int = 5, hidden_num: int = 128,
+                 activation: Callable = F.elu,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.activation = activation
+        self.Conv_0 = Conv(in_ch, hidden_num, 3, dtype=dtype)
+        self.ConvBlockTower_0 = ConvBlockTower(repeat_num, hidden_num,
+                                               activation, dtype=dtype)
+        self.Dense_0 = Dense(tower_out_features(img_h, img_w, repeat_num,
+                                                hidden_num), z_num,
+                             dtype=dtype)
+
+    def forward(self, x: torch.Tensor,
+                pose: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, H, W, 3], pose [B, H, W, P] or None (NHWC) -> [B, z]."""
+        if pose is not None:
+            x = torch.cat([x, pose.to(x.dtype)], dim=-1)
+        x = self.activation(self.Conv_0(x.permute(0, 3, 1, 2)))
+        return self.Dense_0(flatten_nhwc(self.ConvBlockTower_0(x)))
+
+
+def tile_embedding(embs: torch.Tensor, img_h: int,
+                   img_w: int) -> torch.Tensor:
+    """A [B, D] embedding broadcast to an NHWC [B, H, W, D] map
+    (encoders.py:165-172; trainer.py:588-590), a view."""
+    return embs[:, None, None, :].expand(embs.shape[0], img_h, img_w,
+                                         embs.shape[-1])

@@ -1,6 +1,7 @@
 """U-net generator with FC bottleneck (port of
 `dpig_tpu/models/generator.py:16-168`, reference models.py:518-576
-GeneratorCNN_ID_UAEAfterResidual), on its `embs_const` path.
+GeneratorCNN_ID_UAEAfterResidual), on its `embs_const` path; and the
+plain conv decoder that no app reaches (`:171-198`, models.py:252-273).
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .encoders import tower_out_features
-from .layers import Conv, ConvBlockTower, Dense, conv2d_same, flatten_nhwc
+from .layers import (Conv, ConvBlockTower, Dense, conv2d_same,
+                     flatten_nhwc, upscale_nn_nchw)
 
 
 def _border_classes(n: int, device) -> torch.Tensor:
@@ -135,7 +137,55 @@ class UAEGenerator(nn.Module):
             x = act(next(convs)(x))
             x = x + res
             if idx < self.repeat_num - 1:
-                x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
-                x = act(next(convs)(x))
+                x = act(next(convs)(upscale_nn_nchw(x)))
         out = self.to_rgb(x)
         return out.permute(0, 2, 3, 1), z
+
+
+class PlainDecoder(nn.Module):
+    """Conv decoder (generator.py:171-198; models.py:252-273
+    GeneratorCNN_ID_Decoder): `Dense_0` and `activation` (ReLU) to
+    (H/2^(R-1), W/2^(R-1), hidden R), then for idx in [0, R): two 3x3
+    convs at hidden (R - idx) with a residual add, and between stages an
+    NN upscale and a 1x1 conv to hidden (R - idx - 1), each conv through
+    `activation`; a last 3x3 conv to `out_channels` -> [B, H, W, C]. The
+    convs are `Conv_0`.. in call order."""
+
+    def __init__(self, z_dim: int, out_h: int = 128, out_w: int = 64,
+                 out_channels: int = 3, repeat_num: int = 5,
+                 hidden_num: int = 128, activation: Callable = F.relu,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.repeat_num = repeat_num
+        self.activation = activation
+        self.in_h = out_h // (2 ** (repeat_num - 1))
+        self.in_w = out_w // (2 ** (repeat_num - 1))
+        self.in_ch = hidden_num * repeat_num
+        self.Dense_0 = Dense(z_dim, self.in_h * self.in_w * self.in_ch,
+                             dtype=dtype)
+        i = 0
+        for idx in range(repeat_num):
+            ch = hidden_num * (repeat_num - idx)
+            self.add_module(f"Conv_{i}", Conv(ch, ch, 3, dtype=dtype))
+            self.add_module(f"Conv_{i + 1}", Conv(ch, ch, 3, dtype=dtype))
+            i += 2
+            if idx < repeat_num - 1:
+                self.add_module(f"Conv_{i}", Conv(
+                    ch, hidden_num * (repeat_num - idx - 1), 1, dtype=dtype))
+                i += 1
+        self.add_module(f"Conv_{i}", Conv(ch, out_channels, 3, dtype=dtype))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        """z [B, z_dim] -> [B, H, W, out_channels] (NHWC)."""
+        act = self.activation
+        x = act(self.Dense_0(z)).reshape(-1, self.in_h, self.in_w,
+                                         self.in_ch).permute(0, 3, 1, 2)
+        convs = iter(getattr(self, f"Conv_{i}")
+                     for i in range(3 * self.repeat_num))
+        for idx in range(self.repeat_num):
+            res = x
+            x = act(next(convs)(x))
+            x = res + act(next(convs)(x))
+            if idx < self.repeat_num - 1:
+                x = act(next(convs)(upscale_nn_nchw(x)))
+        return next(convs)(x).permute(0, 2, 3, 1)

@@ -25,7 +25,6 @@ from typing import Callable, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.autograd.function import once_differentiable
 
 from ..parallel import dist
 
@@ -51,7 +50,9 @@ class _NativeConv2d(torch.autograd.Function):
     """`F.conv2d` whose forward and backward both run PyTorch's own CUDA
     convolution (im2col + cuBLAS), not cuDNN: the backward picks its
     kernels by the flags at backward time, so a flag around the forward
-    alone would not keep cuDNN out of it. Not twice differentiable."""
+    alone would not keep cuDNN out of it. Its backward is
+    `_NativeConv2dGrad`, differentiable again on the same kernels, so a
+    gradient penalty's double backward stays off cuDNN too."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, stride, padding):
@@ -61,17 +62,56 @@ class _NativeConv2d(torch.autograd.Function):
             return F.conv2d(x, weight, bias, stride, padding)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, grad):
         x, weight = ctx.saved_tensors
         stride, padding, has_bias = ctx.conv
         need = ctx.needs_input_grad
-        with torch.backends.cudnn.flags(enabled=False):
-            gx, gw, gb = torch.ops.aten.convolution_backward(
-                grad, x, weight, [weight.shape[0]] if has_bias else None,
-                [stride] * 2, list(padding), [1, 1], False, [0, 0], 1,
-                [need[0], need[1], has_bias and need[2]])
+        gx, gw, gb = _NativeConv2dGrad.apply(
+            grad, x, weight, stride, padding,
+            (need[0], need[1], has_bias and need[2]))
         return gx, gw, gb, None, None
+
+
+class _NativeConv2dGrad(torch.autograd.Function):
+    """The gradients of `_NativeConv2d` w.r.t. (x, weight, bias), as one
+    `aten.convolution_backward` on PyTorch's own kernels (`mask` picks
+    which; the others are None). The conv is bilinear, so its backward is
+    again a conv forward (`_NativeConv2d`) and conv backwards (this)."""
+
+    @staticmethod
+    def forward(ctx, grad, x, weight, stride, padding, mask):
+        ctx.save_for_backward(grad, x, weight)
+        ctx.conv = (stride, padding)
+        with torch.backends.cudnn.flags(enabled=False):
+            return tuple(torch.ops.aten.convolution_backward(
+                grad, x, weight, [weight.shape[0]] if mask[2] else None,
+                [stride] * 2, list(padding), [1, 1], False, [0, 0], 1,
+                list(mask)))
+
+    @staticmethod
+    def backward(ctx, ggx, ggw, ggb):
+        grad, x, weight = ctx.saved_tensors
+        stride, padding = ctx.conv
+        need = ctx.needs_input_grad
+        d_grad = d_x = d_w = None
+        if need[0]:
+            terms = []
+            if ggx is not None:
+                terms.append(_NativeConv2d.apply(ggx, weight, None, stride,
+                                                 padding))
+            if ggw is not None:
+                terms.append(_NativeConv2d.apply(x, ggw, None, stride,
+                                                 padding))
+            if ggb is not None:
+                terms.append(ggb[:, None, None].expand_as(grad))
+            d_grad = sum(terms) if terms else None
+        if need[1] and ggw is not None:
+            d_x = _NativeConv2dGrad.apply(grad, x, ggw, stride, padding,
+                                          (True, False, False))[0]
+        if need[2] and ggx is not None:
+            d_w = _NativeConv2dGrad.apply(grad, ggx, weight, stride, padding,
+                                          (False, True, False))[1]
+        return d_grad, d_x, d_w, None, None, None
 
 
 def _conv2d(x, weight, bias, stride, padding=(0, 0), cudnn=True):
@@ -107,17 +147,19 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int = 1,
 
 
 class Conv(nn.Module):
-    """flax `nn.Conv` twin: square kernel, SAME (or VALID) padding, bias,
-    computed in `dtype`. `cudnn=False`: in float32 on the card, PyTorch's
-    own conv kernels instead of cuDNN's, forward and backward (the DCGAN
-    D's, `models/discriminators.py`)."""
+    """flax `nn.Conv` twin: square kernel, SAME (or VALID) padding, a bias
+    unless `bias=False` (flax's `use_bias`), computed in `dtype`.
+    `cudnn=False`: in float32 on the card, PyTorch's own conv kernels
+    instead of cuDNN's, forward and backward (the DCGAN D's,
+    `models/discriminators.py`)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  init: str = XAVIER, dtype: torch.dtype = torch.float32,
-                 padding: str = "SAME", cudnn: bool = True):
+                 padding: str = "SAME", cudnn: bool = True,
+                 bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
-        self.bias = nn.Parameter(torch.empty(out_ch))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
         self.stride = stride
         self.init = init
         self.dtype = dtype
@@ -131,6 +173,8 @@ class Conv(nn.Module):
                                self.padding, self.cudnn)
         y = conv2d_same(x.to(dt), self.weight.to(dt), None, self.stride,
                         self.padding)
+        if self.bias is None:
+            return y
         return y + self.bias.to(dt)[:, None, None]
 
 
@@ -227,6 +271,40 @@ class BatchNorm(nn.Module):
                 + self.bias[:, None, None])
 
 
+class LayerNorm(nn.Module):
+    """flax `nn.LayerNorm` twin over the channels of an NCHW tensor (flax's
+    `reduction_axes=-1` on NHWC; not the reference TF's LayerNorm over
+    C, H and W), epsilon 1e-6, `scale` / `bias` of shape [C]. As flax
+    0.12 computes it: the statistics in float32, the variance its fast
+    one, max(mean(x^2) - mean(x)^2, 0), then (x - mean) * (rsqrt(var +
+    eps) * scale) + bias, rounded to `dtype`. It keeps no running
+    statistics: `train` and `update_stats` are accepted and unused, so it
+    stands where a BatchNorm does (the 'wgan-gp' GAN mode)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(num_features))
+        self.bias = nn.Parameter(torch.empty(num_features))
+
+    def forward(self, x: torch.Tensor, train: bool = True,
+                update_stats: bool = False) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = x.mean(1, keepdim=True)
+        var = torch.clamp((x * x).mean(1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight[:, None, None]
+        return ((x - mean) * mul + self.bias[:, None, None]).to(self.dtype)
+
+
+def upscale_nn_nchw(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest-neighbor upsample of an NCHW tensor (`ops/image.py:
+    upscale_nn` on NHWC)."""
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+
 def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
     """NCHW -> [B, H*W*C] in NHWC order, as the flax Dense inputs are."""
     return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
@@ -241,19 +319,21 @@ def _xavier_uniform_(w: torch.Tensor, gen: torch.Generator) -> None:
 
 @torch.no_grad()
 def init_weights(module: nn.Module, gen: torch.Generator) -> None:
-    """Fresh weights for every Conv/Dense/BatchNorm (and the generator's
-    raw stem) under `module`, in module order; the tensors must lie on
-    the generator's device."""
+    """Fresh weights for every Conv/Dense/BatchNorm/LayerNorm (and the
+    generator's raw stem) under `module`, in module order; the tensors
+    must lie on the generator's device."""
     for m in module.modules():
         if isinstance(m, (Conv, Dense)):
             if m.init == XAVIER:
                 _xavier_uniform_(m.weight, gen)
             else:
                 m.weight.normal_(0.0, 0.02, generator=gen)
-            m.bias.zero_()
-        elif isinstance(m, BatchNorm):
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (BatchNorm, LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        if isinstance(m, BatchNorm):
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
         if hasattr(m, "stem_kernel"):  # UAEGenerator's raw stem params

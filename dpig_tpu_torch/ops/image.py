@@ -1,5 +1,6 @@
-"""Image normalization / resizing (port of `dpig_tpu/ops/image.py:12-66`)
-and the embedding slerp (`:93-106`, numpy on the host).
+"""Image normalization / resizing (port of `dpig_tpu/ops/image.py:12-66`),
+the MS-SSIM pyramid's 2x average pool (`:86-90`) and the embedding slerp
+(`:93-106`, numpy on the host).
 
 Reference semantics: utils.py:102-107 (process/unprocess), utils.py:88-89
 (denorm+clip), utils.py:70-72 (nearest-neighbor upscale), utils.py:91-97
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def process_image(image: torch.Tensor, mean_pixel: float = 127.5,
@@ -36,6 +38,16 @@ def upscale_nn(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     b, h, w, c = x.shape
     x = x[:, :, None, :, None, :].expand(b, h, scale, w, scale, c)
     return x.reshape(b, h * scale, w * scale, c)
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2/2 average pool of an NHWC tensor under XLA's SAME padding: an
+    odd side is padded by one zero after (none before), and every cell,
+    the edge's too, is its sum divided by 4 (`F.avg_pool2d`'s own
+    padding is symmetric, hence the explicit pad)."""
+    h, w = x.shape[1], x.shape[2]
+    x = F.pad(x.permute(0, 3, 1, 2), (0, w % 2, 0, h % 2))
+    return F.avg_pool2d(x, 2).permute(0, 2, 3, 1)
 
 
 def slerp(val, low, high):

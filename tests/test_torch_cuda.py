@@ -27,7 +27,11 @@ single-branch encoder at the small config) and a model-103 step on the
 card against the CPU, and models 1001 and 1002 at 256x256 (narrow) in
 float32 and int8. The scoring protocol on the card against the CPU; the
 s8 conv on every call of one Market int8 gate batch of 64; the int8
-gate's check on the card against the CPU.
+gate's check on the card against the CPU. The modules no CLI path
+reaches: `WGANResidualBlock` (each resample), `SubpixelConv`,
+`LayerNorm` and SSIM / MS-SSIM card against CPU, and the WGAN-GP
+critic step of the 'wgan-gp' DCGAN D, whose double backward stays off
+cuDNN (bit-equal to the step with cuDNN off).
 
 Marked `cuda` and skipped without a card. On a machine with one (JAX is not
 needed there, hence no conftest):
@@ -35,6 +39,7 @@ needed there, hence no conftest):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 import contextlib
+import copy
 
 import numpy as np
 import pytest
@@ -1277,3 +1282,140 @@ def test_tf1_bundle_imported_on_the_card(card, tmp_path, capsys):
         assert torch.equal(a, b)
     assert not any(m.split(".")[0] == "tensorflow" for m in sys.modules)
 
+
+
+# ------------------------------------------- the zoo, LayerNorm, SSIM
+def _card_vs_cpu(card, make, inputs, call=lambda m, *xs: m(*xs)):
+    """The module `make()` (seeded weights, 1-D params moved off their
+    init) on the card and on the CPU, float32, TF32 off: (max |diff| of
+    the outputs over their largest |value|, ||diff|| / ||grad|| over the
+    gradients of sum(out * W) w.r.t. every parameter and input)."""
+    from dpig_tpu_torch.models.layers import init_weights
+    cpu = torch.device("cpu")
+    m = make()
+    g = torch.Generator().manual_seed(12)
+    init_weights(m, g)
+    with torch.no_grad():
+        for p in m.parameters():
+            if p.dim() == 1:
+                p.add_(torch.rand(p.shape, generator=g) * 0.4 - 0.2)
+    res = []
+    for dev in (cpu, card):
+        md = copy.deepcopy(m).to(dev)
+        xs = [x.to(dev).requires_grad_(True) for x in inputs]
+        out = call(md, *xs)
+        w = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            13)).to(dev)
+        grads = torch.autograd.grad((out * w).sum(),
+                                    list(md.parameters()) + xs)
+        res.append((out.detach().cpu(), [t.cpu() for t in grads]))
+    (o_cpu, g_cpu), (o_card, g_card) = res
+    out_err = float((o_card - o_cpu).abs().max() / o_cpu.abs().max())
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(g_card, g_cpu))
+    den = sum(float((b ** 2).sum()) for b in g_cpu)
+    return out_err, (num / den) ** 0.5
+
+
+@pytest.mark.parametrize("resample", [None, "down", "up"])
+def test_wgan_residual_block_on_the_card_matches_the_cpu(card, resample):
+    """`models/zoo.py:WGANResidualBlock` at ResnetGenerator / Discriminator
+    widths (128 channels in, 16x8, batch 4; its BatchNorm in train mode):
+    the output within 1e-5 of its largest, the gradients within 1e-4."""
+    from dpig_tpu_torch.models.zoo import WGANResidualBlock
+    co = {None: 128, "down": 256, "up": 64}[resample]
+    x = torch.randn(4, 128, 16, 8, generator=torch.Generator().manual_seed(1))
+    errs = _card_vs_cpu(card, lambda: WGANResidualBlock(128, co, 3, resample),
+                        [x])
+    assert errs[0] <= 1e-5 and errs[1] <= 1e-4, errs
+
+
+def test_subpixel_conv_on_the_card_matches_the_cpu(card):
+    """`SubpixelConv` (3x3, 64 -> 4 x 32 channels, the JAX package's
+    shuffle order) on a 16x8 map, batch 4: the output within 1e-5, the
+    gradients within 1e-4; the shuffle alone bit-equal."""
+    from dpig_tpu_torch.models.zoo import SubpixelConv
+    x = torch.randn(4, 64, 16, 8, generator=torch.Generator().manual_seed(2))
+    errs = _card_vs_cpu(card, lambda: SubpixelConv(64, 32, 3), [x])
+    assert errs[0] <= 1e-5 and errs[1] <= 1e-4, errs
+    m = SubpixelConv(64, 32, 1)
+    with torch.no_grad():
+        m.Conv_0.weight.copy_(torch.eye(128, 64)[:, :, None, None])
+        m.Conv_0.bias.zero_()
+        y = torch.randn(4, 128, 16, 8)[:, :64]
+        assert torch.equal(m.to(card)(y.to(card)).cpu(), m.cpu()(y))
+
+
+def test_layer_norm_on_the_card_matches_the_cpu(card):
+    """`layers.LayerNorm` (flax's over the channels, 512 channels, 8x4,
+    batch 16, a mean offset of 3) in float32: the output within 1e-5, the
+    gradients within 1e-5; and its bfloat16 output within one bfloat16
+    ulp of the CPU's."""
+    from dpig_tpu_torch.models.layers import LayerNorm
+    x = torch.randn(16, 512, 8, 4,
+                    generator=torch.Generator().manual_seed(3)) + 3.0
+    errs = _card_vs_cpu(card, lambda: LayerNorm(512), [x])
+    assert errs[0] <= 1e-5 and errs[1] <= 1e-5, errs
+    m = LayerNorm(512, dtype=torch.bfloat16)
+    with torch.no_grad():
+        m.weight.fill_(1.0)
+        m.bias.zero_()
+        a, b = m.to(card)(x.to(card)).float().cpu(), m.cpu()(x).float()
+    assert float((a - b).abs().max()) <= 2.0 ** -7 * 4
+
+
+def test_ssim_on_the_card_matches_the_cpu(card):
+    """`ops/ssim.py`: SSIM at Market 128x64 (batch 16) and MS-SSIM at
+    256x256 (batch 4) on the card against the CPU within 1e-5; SSIM's
+    gradient w.r.t. the image within 1e-4 of its largest."""
+    from dpig_tpu_torch.ops import ssim
+    g = torch.Generator().manual_seed(4)
+    for fn, shape in ((ssim.ssim, (16, 128, 64, 1)),
+                      (ssim.ms_ssim, (4, 256, 256, 1))):
+        a = torch.rand(shape, generator=g)
+        b = (a + 0.1 * torch.randn(shape, generator=g)).clamp(0, 1)
+        got = float(fn(a.to(card), b.to(card)))
+        want = float(fn(a, b))
+        assert abs(got - want) <= 1e-5, (fn.__name__, got, want)
+    grads = []
+    for dev in (torch.device("cpu"), card):
+        x = a[:, :128, :64].to(dev).requires_grad_(True)
+        (gx,) = torch.autograd.grad(ssim.ssim(x, b[:, :128, :64].to(dev)), x)
+        grads.append(gx.cpu())
+    assert float((grads[1] - grads[0]).abs().max()) <= \
+        1e-4 * float(grads[0].abs().max())
+
+
+def test_wgan_gp_step_of_the_dcgan_d_on_the_card(card):
+    """The WGAN-GP critic step (`losses/gan.py:d_loss("wgan-gp")`) of the
+    'wgan-gp' DCGAN D at Market width (128x64, dim 64, batch 4): its
+    convs' double backward through `layers._NativeConv2dGrad` gives, bit
+    for bit, what the whole step gives with cuDNN off, and the loss and
+    the gradients match the CPU's within 1e-5 and 1e-4."""
+    from dpig_tpu_torch.losses import gan
+    from dpig_tpu_torch.models.discriminators import DCGANDiscriminator
+    from dpig_tpu_torch.models.layers import init_weights
+    g = torch.Generator().manual_seed(5)
+    real, fake = (torch.rand(4, 128, 64, 3, generator=g) * 2 - 1
+                  for _ in range(2))
+    alpha = torch.rand(4, 1, 1, 1, generator=g)
+    d = DCGANDiscriminator(128, 64, mode="wgan-gp")
+    init_weights(d, torch.Generator().manual_seed(6))
+
+    def step(dev):
+        m = copy.deepcopy(d).to(dev)
+        r, f, a = real.to(dev), fake.to(dev), alpha.to(dev)
+        loss = gan.d_loss("wgan-gp", m(r), m(f), critic_fn=m, real_data=r,
+                          fake_data=f, alpha=a)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        return loss.detach().cpu(), [t.cpu() for t in grads]
+
+    native = step(card)
+    with torch.backends.cudnn.flags(enabled=False):
+        off = step(card)
+    assert torch.equal(native[0], off[0])
+    assert all(torch.equal(a, b) for a, b in zip(native[1], off[1]))
+    cpu = step(torch.device("cpu"))
+    assert abs(float(native[0] - cpu[0])) <= 1e-5 * abs(float(cpu[0]))
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(native[1], cpu[1]))
+    den = sum(float((b ** 2).sum()) for b in cpu[1])
+    assert (num / den) ** 0.5 <= 1e-4

@@ -1,6 +1,8 @@
 """The `--D_arch` image discriminators of the port against the JAX
-package's (`dpig_tpu/models/discriminators.py:68-147`): DCGANRegion,
-Patch and FCDis, and DCGAN through the same selector.
+package's (`dpig_tpu/models/discriminators.py:23-147`): DCGANRegion,
+Patch and FCDis, and DCGAN through the same selector, the image Ds in
+both GAN modes ('dcgan': BatchNorm; 'wgan-gp': flax's LayerNorm over
+the channels).
 
 Each module on bridged flax params (its submodule names are flax's, so
 `bridge.params_from_flax` loads it strictly): the train-mode outputs of
@@ -9,8 +11,10 @@ running statistics they leave, the eval-mode output, and the gradients of
 the D objective (params) and of the G objective (the image), in float32;
 the bfloat16 outputs within JAX's own bfloat16-vs-float32 gap; the
 selector's names and errors; `layers._NativeConv2d`, the DCGAN D's conv
-on the card, against F.conv2d and numerical gradients. The Stage-I step
-with each arch is in `tests/test_torch_d_arch_train.py`.
+on the card, against F.conv2d and numerical first and second
+derivatives. The Stage-I step with each arch is in
+`tests/test_torch_d_arch_train.py`; the WGAN-GP critic step in
+`tests/test_torch_wgan_gp.py`.
 
 The Patch D needs 2^(n_layers+1) = 16 px per side, and at 16 to 23 px its
 logit map is empty (JAX returns a [B, 2, 0] map at 32x16, so NaN losses):
@@ -43,6 +47,15 @@ CLASSES = {"DCGAN": disc.DCGANDiscriminator,
            "Patch": disc.PatchDiscriminator, "FCDis": disc.FCDiscriminator}
 LR = Config().g_lr
 BF16_ULP_AT_1 = 2.0 ** -7
+IMAGE_DS = ("DCGAN", "DCGANRegion", "Patch")
+
+
+def _modes(archs):
+    """(arch, mode) cases: each arch in 'dcgan' under its old id, each
+    image D also in 'wgan-gp'."""
+    return ([pytest.param(a, "dcgan", id=a) for a in archs]
+            + [pytest.param(a, "wgan-gp", id=f"{a}-wgan-gp")
+               for a in archs if a in IMAGE_DS])
 
 
 def _t(a):
@@ -53,24 +66,38 @@ def _np(tree):
     return jax.tree_util.tree_map(np.array, tree)
 
 
-def _pair(arch, dtype=jnp.float32):
+def _pair(arch, dtype=jnp.float32, mode="dcgan"):
     """A JAX D with fresh variables, and the port's on the same params,
-    running statistics moved off (0, 1) so that eval mode reads them."""
+    running statistics moved off (0, 1) so that eval mode reads them (in
+    'wgan-gp' the LayerNorms' scales and biases instead, which have no
+    statistics)."""
     h, w = SIZES[arch]
-    jd = jdisc.get_discriminator(arch, mode="dcgan", dtype=dtype)
+    jd = jdisc.get_discriminator(arch, mode=mode, dtype=dtype)
     variables = _np(jd.init(jax.random.PRNGKey(1), jnp.zeros((2, h, w, 3)),
                             train=True))
     rng = np.random.default_rng(2)
     stats = jax.tree_util.tree_map(
         lambda v: v + rng.uniform(0.1, 0.5, v.shape).astype(np.float32),
         variables.get("batch_stats", {}))
-    state = params_from_flax({"D": variables["params"], "D_stats": stats},
+    params = variables["params"]
+    if mode == "wgan-gp":
+        # seed 3: with seed 2 one LeakyReLU input of the Patch D's fake
+        # pass lies at 9.0e-7 in float64 and below 0 in the port's
+        # float32 (JAX's float32 lands above), so that one slope puts the
+        # port's D gradients 8e-4 from float64 (a float32 kink, as
+        # tests/test_torch_df256.py's seed 5; every activation and its
+        # gradient before that element read within 2.5e-6)
+        rng = np.random.default_rng(3)
+        params = {k: ({n: a + rng.uniform(-0.2, 0.2, a.shape).astype(
+            np.float32) for n, a in v.items()} if k.startswith("LayerNorm")
+            else v) for k, v in params.items()}
+    state = params_from_flax({"D": params, "D_stats": stats},
                              ["D", "D_stats"])
     pd = disc.get_discriminator(
-        arch, h, w, dtype=torch.bfloat16 if dtype == jnp.bfloat16
+        arch, h, w, mode=mode, dtype=torch.bfloat16 if dtype == jnp.bfloat16
         else torch.float32)
     pd.load_state_dict({**state["D"], **state["D_stats"]}, strict=True)
-    return jd, {"params": variables["params"], "batch_stats": stats}, pd
+    return jd, {"params": params, "batch_stats": stats}, pd
 
 
 def _images(arch, seed):
@@ -126,13 +153,19 @@ def _check_d_grads(pd, real, fake, port, jax_grads):
     assert all(o <= max(1e-5, 4 * g) for o, g in zip(own, gap)), (own, gap)
 
 
-@pytest.mark.parametrize("arch", list(SIZES))
-def test_discriminator_matches_jax(arch):
+@pytest.mark.parametrize("arch,mode", _modes(list(SIZES)))
+def test_discriminator_matches_jax(arch, mode):
     """float32. Outputs within 1e-5 absolute and relative (sums of up to
-    4x4x512 products in other orders); running statistics within 1e-6;
-    the D objective's parameter gradients as `_check_d_grads`; the G
-    objective's gradient w.r.t. the image within 1e-4 of its largest."""
-    jd, variables, pd = _pair(arch)
+    4x4x512 products in other orders); running statistics within 1e-6
+    ('wgan-gp' has none, and builds a LayerNorm wherever 'dcgan' builds a
+    BatchNorm); the D objective's parameter gradients as
+    `_check_d_grads`; the G objective's gradient w.r.t. the image within
+    1e-4 of its largest."""
+    jd, variables, pd = _pair(arch, mode=mode)
+    if mode == "wgan-gp":
+        names = [n for n, _ in pd.named_children()]
+        assert not any(n.startswith("BatchNorm") for n in names)
+        assert "LayerNorm_0" in names and not list(pd.buffers())
     real, fake = _images(arch, 3)
     assert type(pd) is CLASSES[arch]
 
@@ -158,8 +191,14 @@ def test_discriminator_matches_jax(arch):
         torch.testing.assert_close(got[k], v, rtol=0, atol=1e-6)
 
     j_eval, _ = japply(variables["params"], stats2, real, train=False)
-    np.testing.assert_allclose(pd(_t(real), train=False).detach().numpy(),
-                               np.asarray(j_eval), atol=1e-5, rtol=0)
+    p_eval = pd(_t(real), train=False)
+    if mode == "wgan-gp":
+        # no statistics: eval mode is the train-mode function, held to
+        # the train-mode limit above
+        assert torch.equal(p_eval, p_real)
+    np.testing.assert_allclose(p_eval.detach().numpy(), np.asarray(j_eval),
+                               atol=1e-5, rtol=1e-5 if mode == "wgan-gp"
+                               else 0)
 
     # D objective (params, chained statistics) and G objective (image)
     def d_obj(params):
@@ -167,7 +206,7 @@ def test_discriminator_matches_jax(arch):
         return jgan.d_loss("dcgan", d_real, japply(params, s1, fake)[0])
 
     d_ref = _bridge_d(jax.jit(jax.grad(d_obj))(variables["params"]))
-    _, _, pd = _pair(arch)  # the statistics as they were
+    _, _, pd = _pair(arch, mode=mode)  # the statistics as they were
     img_ref = jax.jit(jax.grad(lambda img: jgan.g_loss("dcgan", japply(
         variables["params"], variables["batch_stats"], img)[0])))(
         jnp.asarray(fake))
@@ -178,15 +217,16 @@ def test_discriminator_matches_jax(arch):
     assert np.abs(g_img.numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("arch", ["DCGANRegion", "Patch", "FCDis"])
-def test_discriminator_bf16_matches_jax(arch):
+@pytest.mark.parametrize("arch,mode", _modes(["DCGANRegion", "Patch",
+                                              "FCDis"]))
+def test_discriminator_bf16_matches_jax(arch, mode):
     """bfloat16 train-mode logits against JAX's bfloat16 ones, within JAX's
     own bfloat16-vs-float32 gap plus one bfloat16 ulp at the largest
     logit (a tie that rounds the other way is a whole ulp; see
     tests/test_torch_bf16.py), max and mean; the port's logits are
     bfloat16."""
-    j32, variables, _ = _pair(arch)
-    j16, _, p16 = _pair(arch, jnp.bfloat16)
+    j32, variables, _ = _pair(arch, mode=mode)
+    j16, _, p16 = _pair(arch, jnp.bfloat16, mode)
     real, _ = _images(arch, 4)
     r32, r16 = (np.asarray(jd.apply(variables, real, train=True,
                                     mutable=["batch_stats"])[0], np.float32)
@@ -203,10 +243,12 @@ def test_discriminator_bf16_matches_jax(arch):
 
 def test_selector_names_and_errors():
     """The names get_discriminator takes (prefixes for Region and Patch),
-    its error for any other, the non-dcgan modes refused, Stage I's D at
-    256x256 (n_stages 5 reaches DCGAN only), and the Patch D's input
-    checks: JAX's ValueError below 16 px, and a ValueError where JAX
-    returns an empty map (16 to 23 px per side)."""
+    its error for any other, the 'wgan-gp' mode building the LayerNorm
+    variant of each image D as JAX does (`LayerNorm_i` where 'dcgan' has
+    `BatchNorm_i`, no running statistics; FCDis alike in both modes),
+    Stage I's D at 256x256 (n_stages 5 reaches DCGAN only), and the Patch
+    D's input checks: JAX's ValueError below 16 px, and a ValueError where
+    JAX returns an empty map (16 to 23 px per side)."""
     for arch, cls in (("DCGANRegion", disc.RegionDiscriminator),
                       ("DCGANRegion_v2", disc.RegionDiscriminator),
                       ("PatchGAN", disc.PatchDiscriminator),
@@ -218,8 +260,18 @@ def test_selector_names_and_errors():
                lambda: disc.get_discriminator("WGAN", 32, 16)):
         with pytest.raises(ValueError, match="You must choose an arch"):
             fn()
-    with pytest.raises(NotImplementedError, match="'dcgan' mode only"):
-        disc.get_discriminator("DCGANRegion", 32, 16, mode="wgan-gp")
+    for arch, cls in CLASSES.items():
+        h, w = SIZES[arch]
+        pd = disc.get_discriminator(arch, h, w, mode="wgan-gp")
+        jd = jdisc.get_discriminator(arch, mode="wgan-gp")
+        assert type(pd) is cls and getattr(jd, "mode", "wgan-gp") == "wgan-gp"
+        names = {n.split(".")[0] for n in pd.state_dict()}
+        jnames = set(jd.init(jax.random.PRNGKey(0),
+                             jnp.zeros((2, h, w, 3)))["params"])
+        assert names == jnames and not list(pd.buffers())
+        assert not any(n.startswith("BatchNorm") for n in names)
+        assert (arch == "FCDis") != any(n.startswith("LayerNorm")
+                                         for n in names)
     for arch, cls in CLASSES.items():
         app = Stage1App(Config(platform="cpu", img_H=256, img_W=256,
                                conv_hidden_num=4, z_num=4, D_arch=arch),
@@ -249,10 +301,12 @@ def test_selector_names_and_errors():
 def test_native_conv_function_is_the_conv_and_its_gradient(stride, padding,
                                                            bias):
     """`layers._NativeConv2d`, the DCGAN D's conv on the card (PyTorch's own
-    kernels forward and backward, its backward calling
-    `aten.convolution_backward` itself): here on the CPU in float64, the
-    value of F.conv2d and the gradients autograd checks numerically, for
-    each input that needs one; under no_grad it records nothing."""
+    kernels forward and backward, its backward `_NativeConv2dGrad`
+    calling `aten.convolution_backward` itself, and differentiable again
+    through both, for the gradient penalty): here on the CPU in float64,
+    the value of F.conv2d and the first and second derivatives autograd
+    checks numerically, for each input that needs one; under no_grad it
+    records nothing."""
     from dpig_tpu_torch.models.layers import _NativeConv2d
     g = torch.Generator().manual_seed(5)
     x = torch.randn(2, 4, 11, 8, generator=g, dtype=torch.float64)
@@ -266,6 +320,7 @@ def test_native_conv_function_is_the_conv_and_its_gradient(stride, padding,
     torch.testing.assert_close(conv(*args), torch.nn.functional.conv2d(
         *args, stride=stride, padding=padding), rtol=0, atol=1e-12)
     assert torch.autograd.gradcheck(conv, tuple(args))
+    assert torch.autograd.gradgradcheck(conv, tuple(args))
     assert torch.autograd.gradcheck(
         lambda w: conv(x.detach(), w), (w,))  # the D's first conv
     with torch.no_grad():
