@@ -11,6 +11,7 @@ from ..config import Config
 from ..losses import gan
 from ..ops.pose import render_pose_maps
 from ..parallel import dist
+from ..utils import spans
 
 
 def critic_batches_per_step(cfg: Config) -> int:
@@ -44,9 +45,14 @@ def select_device(platform: str) -> torch.device:
 
 def batch_to_device(batch: Mapping[str, np.ndarray],
                     device: torch.device) -> Dict[str, torch.Tensor]:
-    """numpy loader batch -> tensors on `device`."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+    """numpy loader batch -> tensors on `device` (the span `copy_in`,
+    counting the bytes copied)."""
+    with spans.span("copy_in") as s:
+        out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+               for k, v in batch.items()}
+        if s is not None:
+            s.add(bytes=sum(t.nbytes for t in out.values()))
+    return out
 
 
 def select_parts(batch_bbox: torch.Tensor, batch_vis: torch.Tensor,

@@ -30,6 +30,7 @@ from ..models.generator import UAEGenerator
 from ..models.layers import init_weights
 from ..parallel import dist
 from ..train.state import GanState
+from ..utils import spans
 from .common import l1_loss, masked_l1_loss, pose_maps_from_batch, select_parts
 
 GAN_MODE = "dcgan"  # trainer.py:257
@@ -150,14 +151,25 @@ class Stage1App:
         neither net's activations for the backward pass, which runs each
         forward again instead (`torch.utils.checkpoint`). Neither net has
         BatchNorm or dropout, so the second forward gives the same
-        activations; the pose maps are its input, rendered once."""
-        if remat:
-            embs = checkpoint(self._encode, x, mask, bbox, vis,
-                              use_reentrant=False)
-            return checkpoint(self._generate, embs, pose,
-                              use_reentrant=False), embs
-        embs = self._encode(x, mask, bbox, vis)
-        return self._generate(embs, pose), embs
+        activations; the pose maps are its input, rendered once.
+
+        Spans (`utils/spans.py`): `encoder` and `generator` around the two
+        forwards; with the recorder on and grad enabled, the coming
+        backward pass is split into `generator.backward` (from g_raw's
+        gradient) and `encoder.backward` (from the embeddings'), which
+        the caller ends with `spans.end_backward()`."""
+        with spans.span("encoder"):
+            embs = (checkpoint(self._encode, x, mask, bbox, vis,
+                               use_reentrant=False) if remat
+                    else self._encode(x, mask, bbox, vis))
+        with spans.span("generator"):
+            g_raw = (checkpoint(self._generate, embs, pose,
+                                use_reentrant=False) if remat
+                     else self._generate(embs, pose))
+        if spans.enabled() and torch.is_grad_enabled():
+            spans.split_backward((g_raw, "generator.backward"),
+                                 (embs, "encoder.backward"))
+        return g_raw, embs
 
     @full_float32()
     def _disc_apply(self, img, train: bool = True,
@@ -236,6 +248,7 @@ class Stage1App:
         g_total, g_raw, aux = self.g_loss(x, pose, mask, bbox, vis)
         mark("g_forward")
         g_grads = torch.autograd.grad(g_total, state.g_params)
+        spans.end_backward()
         mark("g_backward")
         state.g_opt.step(g_grads)
         mark("g_update")

@@ -65,6 +65,7 @@ from ..models.mappers import GaussianMapper, sample_mapper_noise
 from ..ops.image import slerp
 from ..ops.pose import pose_rcv_normalize, render_pose_maps
 from ..train.checkpoint import compose_pretrained
+from ..utils import spans
 from ..utils.viz import pose_to_gray, save_image
 from .common import (batch_to_device, pose_maps_from_batch,
                      select_device, select_parts)
@@ -201,37 +202,43 @@ class _TesterBase:
 
     # shared forward pieces ------------------------------------------------
     def _encode_app(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The ROI encoder's appearance code, int8 once `run()` has
+        calibrated it (the span `encoder`, the part selection included)."""
         cfg = self.cfg
-        bbox, vis = select_parts(batch["part_bbox"], batch["part_vis"],
-                                 cfg.roi_part_num)
-        if self.quant_enc is not None:
-            with full_float32():
-                return quant_mod.roi_fgbg_forward(
-                    self.stage1.encoder, batch["x"], batch["mask_r6"], bbox,
-                    vis, cfg.repeat_num, cfg.conv_hidden_num,
-                    part_num=cfg.roi_part_num, quant=self.quant_enc)
-        return self.stage1._encode(batch["x"], batch["mask_r6"], bbox, vis)
+        with spans.span("encoder"):
+            bbox, vis = select_parts(batch["part_bbox"], batch["part_vis"],
+                                     cfg.roi_part_num)
+            if self.quant_enc is not None:
+                with full_float32():
+                    return quant_mod.roi_fgbg_forward(
+                        self.stage1.encoder, batch["x"], batch["mask_r6"],
+                        bbox, vis, cfg.repeat_num, cfg.conv_hidden_num,
+                        part_num=cfg.roi_part_num, quant=self.quant_enc)
+            return self.stage1._encode(batch["x"], batch["mask_r6"], bbox,
+                                       vis)
 
     @full_float32()
     def _generate(self, embs: torch.Tensor,
                   pose_maps: torch.Tensor) -> torch.Tensor:
         """(testers.py:148-177) The int8 generator, chained or, for a
         fallback set under --int8_fallback_mode=legacy, the per-layer
-        graph; else the bfloat16 raw-param forward; else the module."""
+        graph; else the bfloat16 raw-param forward; else the module (the
+        span `generator`)."""
         cfg = self.cfg
         gen, repeat = self.stage1.generator, self.stage1.gen_repeat
-        if self.quant_gen is not None:
-            _, gen_fb = _parse_int8_fallback(cfg)
-            g_raw, _ = quant_mod.uae_forward(
-                gen, embs, pose_maps, repeat, cfg.conv_hidden_num,
-                quant=self.quant_gen, chained=not gen_fb
-                or cfg.int8_fallback_mode == "island")
-            return g_raw
-        if self.stage1.dtype == torch.bfloat16:
-            g_raw, _ = quant_mod.uae_forward_bf16(
-                gen, embs, pose_maps, repeat, cfg.conv_hidden_num)
-            return g_raw
-        return self.stage1._generate(embs, pose_maps)
+        with spans.span("generator"):
+            if self.quant_gen is not None:
+                _, gen_fb = _parse_int8_fallback(cfg)
+                g_raw, _ = quant_mod.uae_forward(
+                    gen, embs, pose_maps, repeat, cfg.conv_hidden_num,
+                    quant=self.quant_gen, chained=not gen_fb
+                    or cfg.int8_fallback_mode == "island")
+                return g_raw
+            if self.stage1.dtype == torch.bfloat16:
+                g_raw, _ = quant_mod.uae_forward_bf16(
+                    gen, embs, pose_maps, repeat, cfg.conv_hidden_num)
+                return g_raw
+            return self.stage1._generate(embs, pose_maps)
 
     @torch.inference_mode()
     def _inference_params(self, first_batch: Mapping[str, torch.Tensor],
@@ -552,13 +559,18 @@ class ConditionalTransferTester(_TesterBase):
     @torch.inference_mode()
     def transfer_step(self, batch: Mapping[str, torch.Tensor]):
         """Batch of device tensors -> (images [B,H,W,3] in [0,255],
-        target pose maps [B,H,W,K], D scores [B])."""
+        target pose maps [B,H,W,K], D scores [B]). The span
+        `transfer_step` holds `encoder`, `pose_raster`, `generator` and
+        `disc_score`; its self time is the clamp."""
         cfg = self.cfg
-        embs = self._encode_app(batch)
-        pose_t = pose_maps_from_batch(batch, cfg, "pose_rcv_target")
-        g_raw = self._generate(embs, pose_t)
-        score = self._disc_score(g_raw)
-        return torch.clamp((g_raw + 1) * 127.5, 0, 255), pose_t, score
+        with spans.span("transfer_step"):
+            embs = self._encode_app(batch)
+            with spans.span("pose_raster"):
+                pose_t = pose_maps_from_batch(batch, cfg, "pose_rcv_target")
+            g_raw = self._generate(embs, pose_t)
+            with spans.span("disc_score"):
+                score = self._disc_score(g_raw)
+            return torch.clamp((g_raw + 1) * 127.5, 0, 255), pose_t, score
 
     def run(self, loader: Iterator, test_batch_num: Optional[int] = None) -> str:
         cfg = self.cfg

@@ -33,6 +33,7 @@ from ..config import Config
 from ..eval.metrics import ssim_images
 from ..ops.pose import render_pose_maps
 from ..parallel import dist
+from ..utils import spans
 from ..utils.viz import pose_to_gray, save_image
 from . import checkpoint as ckpt
 from .events import EventWriter
@@ -153,16 +154,18 @@ class Trainer:
     def step(self, state: GanState) -> Dict[str, Any]:
         """One train step on the next loader batch (a tuple of
         `batches_per_step` batches, and the step's noise, where the app
-        takes them), copied to the app's device."""
+        takes them), copied to the app's device (the span `trainer.step`
+        around it all)."""
         app = self.app
         n = getattr(app, "batches_per_step", 1)
-        batch = tuple(batch_to_device(next(self.loader), app.device)
-                      for _ in range(n))
-        args = (batch if n > 1 else batch[0],)
-        if hasattr(app, "step_noise"):  # this rank's rows of the global draw
-            args += (dist.local_rows(app.step_noise(
-                self.noise_gen, self.cfg.batch_size), dim=1),)
-        return app.train_step(state, *args)
+        with spans.span("trainer.step"):
+            batch = tuple(batch_to_device(next(self.loader), app.device)
+                          for _ in range(n))
+            args = (batch if n > 1 else batch[0],)
+            if hasattr(app, "step_noise"):  # this rank's rows of the draw
+                args += (dist.local_rows(app.step_noise(
+                    self.noise_gen, self.cfg.batch_size), dim=1),)
+            return app.train_step(state, *args)
 
     # ------------------------------------------------------- previews
     def _save_fixed_previews(self, batch: Dict[str, np.ndarray]) -> None:

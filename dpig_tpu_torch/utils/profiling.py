@@ -9,13 +9,18 @@ Runs `ConditionalTransferTester`, `FullSamplingTester` (sample_app,
 pose_source 'sampled', as `chip_smoke.py` runs it) and
 `Stage1App.train_step` on the card at full Market width (the `Config()`
 defaults: 128x64, hidden 128, z 64, batch 16, Adam at 8e-5, the re-forward
-D step), cold start, float32, and prints eight breakdowns:
+D step), cold start, float32, and prints these breakdowns:
 
-  stages  device time of each layer of `transfer_step` (CUDA events,
-          median over REPS after a warm-up): ROI encoder (stem, crop,
-          towers), pose raster, generator, D score; with each stage's
-          conv and matrix-product FLOPs (FlopCounterMode, from shapes)
-          and the achieved rate;
+  spans (model 12)  REPS client batches (copy in, transfer_step, images
+          copied out) after a warm-up, the span recorder (`utils/spans.py`)
+          on: per batch, each span's device ms, its self ms (less its
+          child spans: `transfer_step`'s is the clamp) and host ms, and
+          the copy-in's bytes; a profiled stretch of REPS more: its busy
+          share and the share of it in which the card is idle while the
+          host is inside `copy_in`;
+  stages  the median device ms of each layer of `transfer_step` in the
+          same batches (its spans): ROI encoder (part selection, stem,
+          crop, towers), pose raster, generator, D score;
   loop    host time of each part of `run()`'s loop (synchronized): copy
           in, transfer_step, source pose map, copy out, PNG writes, SSIM;
   trace   torch.profiler over one `run()` batch: the device's busy share of
@@ -33,11 +38,14 @@ D step), cold start, float32, and prints eight breakdowns:
   train   device time of each phase of a train step (CUDA events at
           `train_step`'s phase marks, median over REPS after a warm-up):
           G forward, G backward, G update, G re-forward, D forward and
-          backward (real and fake), D update; FLOPs and the achieved rate
-          of each; host ms per step;
+          backward (real and fake), D update; host ms per step;
   train trace  torch.profiler over one `train_step`: wall and busy share,
           the top kernels, and the device time of the ROI crop's backward
           (`aten::_index_put_impl_`, an accumulating index_put_);
+  spans (model 1)  the same as for model 12 over REPS `Trainer.step`s:
+          the copy-in, each net's forwards and backward
+          (`encoder.backward`, `generator.backward`), and the step's self
+          ms (the D's passes, the losses and both Adams);
   stage2  for model 3 (`Stage2AppApp`, the default `fresh` batches, cold
           start) and model 4 (`Stage2PoseApp`), batch 16: device ms of each
           phase of `train_step` (CUDA events at its marks, the critic
@@ -65,7 +73,6 @@ import tempfile
 import time
 from collections import defaultdict
 
-import numpy as np
 import torch
 
 from ..apps.common import batch_to_device, pose_maps_from_batch
@@ -80,57 +87,51 @@ from ..data.synthetic import SyntheticLoader, write_synthetic_tfrecords
 from ..eval.metrics import ssim_images
 from ..ops.pose import render_pose_maps
 from ..train.harness import Trainer
+from . import spans
 from .viz import pose_to_gray
 
-STAGES = ("encode", "pose_raster", "generate", "disc_score")
 SAMPLING_STAGES = ("encode", "mappers", "pose_ae", "pose_raster", "generate",
                    "disc_score")
 SAMPLING_SOURCE = "sampled"
 LOOP = ("copy_in", "transfer_step", "source_pose", "copy_out", "png_write",
         "ssim")
+STAGE_SPANS = {"encode": "encoder", "pose_raster": "pose_raster",
+               "generate": "generator", "disc_score": "disc_score"}
+COPY_IN = "copy_in"
 CROP_BACKWARD_OP = "aten::_index_put_impl_"
 LOADER_PAIRS = 192  # two epochs of fresh model-3 steps (96 samples each)
 REPS = 5
 
 
-@torch.inference_mode()
-def stage_flops(tester, jb) -> dict:
-    """FLOPs (2 per multiply-add) of the convs and matrix products of each
-    stage of transfer_step on batch `jb`, counted from their shapes by
-    PyTorch's FlopCounterMode in one forward."""
-    from torch.utils.flop_counter import FlopCounterMode
+def recorded(fn, reps: int) -> dict:
+    """`spans.summary()` of `reps` calls of `fn()` after one warm-up call,
+    the recorder on for them. The recorder is reset before and after, and
+    left on only if it was."""
+    was = spans.enabled()
+    fn()
+    spans.reset()
+    spans.enable()
+    try:
+        for _ in range(reps):
+            fn()
+        return spans.summary()
+    finally:
+        spans.reset()
+        if not was:
+            spans.disable()
 
-    def count(fn):
-        with FlopCounterMode(display=False) as counter:
-            out = fn()
-        return out, counter.get_total_flops()
 
-    embs, enc = count(lambda: tester._encode_app(jb))
-    pose = pose_maps_from_batch(jb, tester.cfg, "pose_rcv_target")
-    g_raw, gen = count(lambda: tester._generate(embs, pose))
-    _, disc = count(lambda: tester._disc_score(g_raw))
-    return {"encode": enc, "generate": gen, "disc_score": disc}
+def stages_of(table: dict) -> dict:
+    """Median device ms of each layer of transfer_step in a
+    `spans.summary()` table (the spans of STAGE_SPANS)."""
+    return {s: statistics.median(table[span]["device_ms"])
+            for s, span in STAGE_SPANS.items()}
 
 
-@torch.inference_mode()
 def stage_ms(tester, jb, reps: int) -> dict:
-    """Median device ms of each layer of transfer_step on batch `jb`."""
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(STAGES) + 1)]
-    rows = []
-    for _ in range(reps + 1):  # the first is a warm-up
-        ev[0].record()
-        embs = tester._encode_app(jb)
-        ev[1].record()
-        pose = pose_maps_from_batch(jb, tester.cfg, "pose_rcv_target")
-        ev[2].record()
-        g_raw = tester._generate(embs, pose)
-        ev[3].record()
-        tester._disc_score(g_raw)
-        ev[4].record()
-        torch.cuda.synchronize()
-        rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(len(STAGES))])
-    return {s: statistics.median(r[i] for r in rows[1:])
-            for i, s in enumerate(STAGES)}
+    """Median device ms of each layer of transfer_step on batch `jb`, over
+    `reps` real calls after a warm-up."""
+    return stages_of(recorded(lambda: tester.transfer_step(jb), reps))
 
 
 @torch.inference_mode()
@@ -247,23 +248,6 @@ def loop_ms(tester, loader, dirs, reps: int) -> dict:
         rows.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
     return {s: statistics.median(r[i] for r in rows[1:])
             for i, s in enumerate(LOOP)}
-
-
-def train_phase_flops(app: Stage1App, state, batch) -> dict:
-    """FLOPs of each phase of one train step (FlopCounterMode: convs and
-    matrix products, backward ones included, from their shapes)."""
-    from torch.utils.flop_counter import FlopCounterMode
-    counter = FlopCounterMode(display=False)
-    flops, last = {}, [0]
-
-    def mark(phase):
-        total = counter.get_total_flops()
-        flops[phase] = total - last[0]
-        last[0] = total
-
-    with counter:
-        app.train_step(state, batch, mark)
-    return flops
 
 
 def train_phase_ms(app: Stage1App, state, batch, reps: int) -> dict:
@@ -393,29 +377,80 @@ def trace(fn, top: int = 12, crop: bool = False) -> dict:
 
 def _device_summary(prof, wall_us: float, top: int) -> dict:
     """Busy share of the wall time (union of device intervals), device
-    time by kernel name, and the host-to-device copies (`Memcpy HtoD`
-    events, by kind)."""
-    spans, by_name, counts = [], defaultdict(float), defaultdict(int)
+    time by kernel name, the host-to-device copies (`Memcpy HtoD`
+    events, by kind), and the share of the wall time in which the card
+    is idle while the host is inside a `copy_in` span (its
+    `record_function`)."""
+    ops, by_name, counts, copy_in = [], defaultdict(float), \
+        defaultdict(int), []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.name == COPY_IN and e.is_user_annotation:
+                copy_in.append((e.time_range.start, e.time_range.end))
             continue
-        spans.append((e.time_range.start, e.time_range.end))
+        if e.is_user_annotation:  # a span's annotation on the device
+            continue
+        ops.append((e.time_range.start, e.time_range.end))
         by_name[e.name] += e.time_range.elapsed_us()
         counts[e.name] += 1
-    busy, end = 0.0, -np.inf
-    for s, e in sorted(spans):  # union of device intervals
-        if e > end:
-            busy += e - max(s, end)
-            end = e
+    busy = spans.union(ops)
+    busy_us = spans.covered(busy)
+    idle_in_copy = sum((e - s) - spans.covered(busy, s, e)
+                       for s, e in spans.union(copy_in))
     kernels = sorted(by_name, key=by_name.get, reverse=True)[:top]
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "device_busy_share": busy / wall_us if wall_us else 0.0,
-            "device_events": len(spans),
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us if wall_us else 0.0,
+            "copy_in_idle_share": idle_in_copy / wall_us if wall_us
+            else 0.0,
+            "device_events": len(ops),
             "top": [{"name": n[:90], "ms": by_name[n] / 1e3,
                      "count": counts[n]} for n in kernels],
             "pose_raster_us": [by_name[n] / counts[n] for n in by_name
                                if "pose_raster" in n],
             "h2d_copies": {n: counts[n] for n in by_name if "HtoD" in n}}
+
+
+def span_profile(step, reps: int) -> dict:
+    """The recorder's table of `reps` calls of `step()` (one Trainer.step,
+    or one batch copied in, transferred and copied out) after a warm-up
+    (`spans`), and a profiled stretch of `reps` more with the recorder on
+    (`trace`: busy share, copy-in idle share). The recorder is left off
+    and reset."""
+    out = {"spans": recorded(step, reps)}
+    spans.enable()
+    try:
+        out["trace"] = trace(lambda: [step() for _ in range(reps)])
+    finally:
+        spans.reset()
+        spans.disable()
+    return out
+
+
+def transfer_client(tester, loader):
+    """One batch as a client serves it: copied in, transferred, images
+    copied out to host memory."""
+    def step():
+        images, _, _ = tester.transfer_step(
+            batch_to_device(next(loader), tester.device))
+        images.cpu()
+    return step
+
+
+def _print_spans(tag: str, prof: dict, reps: int) -> None:
+    """Per call: each span's count, device ms, self ms and host ms, with
+    its parent and the bytes it counted; the traced stretch's shares."""
+    tr = prof["trace"]
+    for name, row in prof["spans"].items():
+        where = f" in {row['parent'][0]}" if row["parent"][0] else ""
+        moved = (f", {row['counts']['bytes'] / reps / 1e6:.2f} MB"
+                 if "bytes" in row["counts"] else "")
+        print(f"[spans] {tag}: {name}{where} x{row['count'] / reps:g}: "
+              f"device ms {sum(row['device_ms']) / reps:.3f} (self "
+              f"{sum(row['self_ms']) / reps:.3f}), host ms "
+              f"{sum(row['host_ms']) / reps:.3f}{moved}")
+    print(f"[spans] {tag}: traced stretch busy share "
+          f"{tr['device_busy_share']:.4f}, idle inside copy_in "
+          f"{tr['copy_in_idle_share']:.4f} of the stretch")
 
 
 def main() -> int:
@@ -427,8 +462,9 @@ def main() -> int:
         loader = SyntheticLoader(cfg.batch_size, cfg.img_H, cfg.img_W,
                                  seed=cfg.random_seed)
         jb = batch_to_device(next(loader), tester.device)
-        flops = stage_flops(tester, jb)
-        stages = stage_ms(tester, jb, REPS)
+        transfer_spans = span_profile(transfer_client(tester, loader),
+                                      REPS)
+        stages = stages_of(transfer_spans["spans"])
         dirs = {d: os.path.join(tmp, "loop", d) for d in (
             "x", "x_target", "G", "pose", "pose_target", "mask",
             "mask_target")}
@@ -453,10 +489,12 @@ def main() -> int:
         app = Stage1App(cfg, torch.device("cuda"))
         state = app.init_state()
         tb = batch_to_device(next(loader), app.device)
-        train_flops = train_phase_flops(app, state, tb)
         train_ms = train_phase_ms(app, state, tb, REPS)
         step_ms = train_step_ms(app, state, loader, REPS)
         train_trace = trace(lambda: app.train_step(state, tb), crop=True)
+        trainer = Trainer(cfg, app, loader)
+        train_spans = span_profile(lambda: trainer.step(state), REPS)
+        del trainer
         del app, state
         stage2 = {m: stage2_profile(cls, Config(platform="",
                                                 model_dir=f"{tmp}/m{m}"),
@@ -472,12 +510,11 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"[profile] {name}, model 12 {cfg.img_H}x{cfg.img_W} hidden "
           f"{cfg.conv_hidden_num} z {cfg.z_num} batch {cfg.batch_size}")
+    _print_spans(f"model 12 batch {cfg.batch_size} (copy in, "
+                 "transfer_step, copy out)", transfer_spans, REPS)
     print("[stages] device ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items())
         + f" | sum {sum(stages.values()):.3f}")
-    print("[stages] GFLOP (achieved TFLOP/s): " + ", ".join(
-        f"{k} {v / 1e9:.1f} ({v / stages[k] / 1e9:.2f})"
-        for k, v in flops.items()))
     print("[loop] host ms: " + ", ".join(f"{k} {v:.2f}" for k, v in
                                          loop.items())
           + f" | sum {sum(loop.values()):.2f}")
@@ -508,10 +545,6 @@ def main() -> int:
           f"{cfg.fast_gan_step}: device ms per phase: " + ", ".join(
               f"{k} {v:.3f}" for k, v in train_ms.items())
           + f" | sum {sum(train_ms.values()):.3f}")
-    print("[train] GFLOP (achieved TFLOP/s): " + ", ".join(
-        f"{k} {v / 1e9:.1f} ({v / train_ms[k] / 1e9:.2f})"
-        for k, v in train_flops.items() if v)
-        + f" | step {sum(train_flops.values()) / 1e12:.3f} TFLOP")
     print(f"[train] host ms per step (copy in, step, sync; {REPS} steps): "
           f"median {statistics.median(step_ms):.2f}, all "
           f"{[round(t, 2) for t in step_ms]}; "
@@ -526,6 +559,8 @@ def main() -> int:
     for row in train_trace["top"]:
         print(f"[train trace]   {row['ms']:9.3f} ms  x{row['count']:<4d} "
               f"{row['name']}")
+    _print_spans(f"model 1 batch {cfg.batch_size} (Trainer.step)",
+                 train_spans, REPS)
     for m, prof in stage2.items():
         ph, tr = prof["phases_ms"], prof["trace"]
         print(f"[stage2] model {m}, batch {cfg.batch_size}, critic_batch_mode "
@@ -557,13 +592,13 @@ def main() -> int:
           f"{tr['device_busy_share']:.3f}); host-to-device copies "
           f"{tr['h2d_copies']}")
     print(json.dumps({"device": name, "batch_size": cfg.batch_size,
-                      "stages_ms": stages, "stages_flops": flops,
+                      "stages_ms": stages, "transfer_spans": transfer_spans,
                       "loop_ms": loop, "trace": trace_12,
                       "sampling_stages_ms": s_stages,
                       "sampling_loop_ms": s_loop, "sampling_trace": s_trace,
                       "train_phase_ms": train_ms,
-                      "train_phase_flops": train_flops,
                       "train_step_ms": step_ms, "train_trace": train_trace,
+                      "train_spans": train_spans,
                       "stage2": stage2, "stage2_loader": stage2_loader}))
     return 0
 

@@ -1,7 +1,6 @@
-"""The port's profiler: its FLOP count per stage of the model-12
-transfer step, its stage-by-stage model-11 step, its phase-by-phase train
-steps (model 1 with its FLOPs, models 3 and 4), and its refusal to measure
-without a card."""
+"""The port's profiler: its stage-by-stage model-11 step, its
+phase-by-phase train steps (models 1, 3 and 4), and its refusal to
+measure without a card (its model-12 stages: tests/test_torch_spans.py)."""
 import pytest
 import torch
 
@@ -9,8 +8,7 @@ from dpig_tpu_torch.apps.common import batch_to_device
 from dpig_tpu_torch.apps.stage1_app import Stage1App
 from dpig_tpu_torch.apps.stage2_app import STAGE2_PHASES, Stage2AppApp
 from dpig_tpu_torch.apps.stage2_pose import Stage2PoseApp
-from dpig_tpu_torch.apps.testers import (ConditionalTransferTester,
-                                         FullSamplingTester)
+from dpig_tpu_torch.apps.testers import FullSamplingTester
 from dpig_tpu_torch.config import Config
 from dpig_tpu_torch.data.synthetic import SyntheticLoader
 from dpig_tpu_torch.train import checkpoint as ckpt
@@ -19,25 +17,6 @@ from dpig_tpu_torch.utils import profiling
 torch.set_num_threads(1)
 
 SMALL = dict(img_H=32, img_W=16, batch_size=4, conv_hidden_num=16, z_num=16)
-
-
-def test_stage_flops_counts_the_discriminator_from_its_shapes(tmp_path):
-    cfg = Config(platform="cpu", model_dir=str(tmp_path), **SMALL)
-    tester = ConditionalTransferTester(cfg)
-    jb = batch_to_device(next(SyntheticLoader(4, 32, 16, seed=1)),
-                         tester.device)
-    flops = profiling.stage_flops(tester, jb)
-    assert set(flops) == {"encode", "generate", "disc_score"}
-    assert flops["encode"] > 0 and flops["generate"] > 0
-    # DCGAN D: four 5x5 stride-2 SAME convs (64, 128, 256, 512 channels)
-    # and a 1-unit dense layer over the NHWC-flattened features
-    macs, h, w, ch_in = 0, cfg.img_H, cfg.img_W, 3
-    for ch in (64, 128, 256, 512):
-        h, w = -(-h // 2), -(-w // 2)
-        macs += cfg.batch_size * h * w * ch * ch_in * 25
-        ch_in = ch
-    macs += cfg.batch_size * h * w * ch_in
-    assert flops["disc_score"] == 2 * macs
 
 
 @pytest.mark.parametrize("fast", [False, True])
@@ -64,22 +43,6 @@ def test_train_step_marks_each_phase_and_the_marks_change_nothing(tmp_path,
         for net, tensors in s0[key].items():
             for n, t in tensors.items():
                 assert torch.equal(t, s1[key][net][n]), (key, net, n)
-
-
-def test_train_phase_flops(tmp_path):
-    """Convs and matrix products per phase: none outside the passes, the
-    G backward about twice its forward (input and weight gradients; the
-    first conv of each net needs no input gradient), the re-forward the G
-    forward less the D's share."""
-    cfg = Config(platform="cpu", model_dir=str(tmp_path), **SMALL)
-    app = Stage1App(cfg, torch.device("cpu"))
-    jb = batch_to_device(next(SyntheticLoader(4, 32, 16, seed=1)), app.device)
-    flops = profiling.train_phase_flops(app, app.init_state(), jb)
-    assert list(flops) == list(profiling.TRAIN_PHASES)
-    assert flops["inputs"] == flops["g_update"] == flops["d_update"] == 0
-    assert 1.5 < flops["g_backward"] / flops["g_forward"] <= 2.0
-    assert 0 < flops["g_reforward"] < flops["g_forward"]
-    assert flops["d_forward_backward"] > 0
 
 
 @pytest.mark.parametrize("sample_app", [False, True])
